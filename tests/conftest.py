@@ -60,3 +60,8 @@ def reduced_cfg(arch_id: str) -> ModelConfig:
 def rng_key():
     import jax
     return jax.random.key(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped where there is none")
