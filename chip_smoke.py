@@ -15,11 +15,14 @@ Phases (any failure exits non-zero and prints no result):
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version at the shapes BLOOM-3B's serving path gives it (decode M = 8 and
    prefill M = 8 * 512 for the quantized matmuls; B = 8, W = 640, 32 heads
-   of 80 for decode attention) and timed beside its bound, its plain
-   version and one PyTorch library call.
+   of 80 for decode attention, over a slab and, paged, through a block
+   table of 16-slot pages) and timed beside its bound, its plain version
+   and one PyTorch library call.  The paged kernel must also be bitwise
+   equal to the slab kernel on the gathered slab, and read the leading
+   corner of a wider (32, 128) page tail in place.
 4. Small reference: a reduced float32 BLOOM served on the card through the
    kernels gives the same greedy tokens as the same weights served on the
-   CPU through the plain versions.
+   CPU through the plain versions, slab and paged.
 5. Slice: full-width BLOOM-3B (30 layers, d_model 2560, vocab 250,880,
    bfloat16, random weights from a seed) serves a few epochs through
    ``EpochRuntime`` + ``EngineExecutor``, three ways: ``dftsp`` at W8A16
@@ -29,6 +32,14 @@ Phases (any failure exits non-zero and prints no result):
    zeroed just before it and read just after, and each kernel must have
    launched in the run that reaches its tier.  ``generate`` must equal
    ``generate_reference`` at each quantized precision.
+6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
+   + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
+   pages (``dftsp``, chunk k = 16), counted on its own: the paged decode
+   kernel and W8A16 must launch, the slab decode kernel must not, requests
+   are conserved and every page is back on the free list after the drain.
+   On the same engine, chunked decode over the arena, chunked decode over
+   the slab and ``generate`` give bitwise equal tokens, and so do a paged
+   and a slab cohort refilled at step 40.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -67,6 +78,9 @@ ATTN = dict(B=BATCH, nh=32, nkv=32, dh=80, W=S_MAX + N_MAX,
 # summation error (measured below 4e-6 at these shapes).
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
 F32_TOL = dict(rtol=1e-4, atol=1e-4)        # summation order only
+# the paged path: 16-slot pages, an arena of half the slab's pages (the
+# size KVArena.for_engines(engine, 16, shrink=0.5) gives the main engine)
+PAGED = dict(bt=16, shrink=0.5, tail=(32, 128))
 # the library yardstick rounds its probabilities to bf16 before P @ V
 LIBRARY_TOL = dict(rtol=2 ** -7, atol=1e-2)
 ROTATE_BYTES = 256e6                        # > 5x the 50 MB L2
@@ -296,6 +310,97 @@ def flash_decode_phase():
     return max_err, tol, out
 
 
+def flash_decode_paged_phase():
+    """K5 at BLOOM-3B's decode shape through a block table: B=8, 40 blocks
+    of 16 slots (W=640), 32 heads of 80, over an arena of 162 pages."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.serving.kv_arena import N_RESERVED
+    B, nh, nkv, dh, W, nv = (ATTN[k] for k in ("B", "nh", "nkv", "dh", "W",
+                                               "n_valid"))
+    bt = PAGED["bt"]
+    n_b = W // bt
+    P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # each row's blocks on a random permutation of the allocatable pages
+    table = torch.stack([N_RESERVED + torch.randperm(
+        P - N_RESERVED, generator=gen, device=dev)[:n_b]
+        for _ in range(B)]).to(torch.int32)
+    tl = table.long()
+
+    def gather(pages):
+        return pages[tl].reshape((B, W) + tuple(pages.shape[2:]))
+
+    q = torch.randn((B, nh, dh), generator=gen, device=dev)
+    kp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    vp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    rows = torch.randint(1, W + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    max_err, f32_err = 0.0, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dt) for t in (q, kp, vp))
+        ks, vs = gather(kd), gather(vd)
+        for n_valid in (nv, W, 1, rows):
+            got = fd.flash_decode_paged_cuda(qd, kd, vd, table, n_valid)
+            want = fd.flash_decode_paged_plain(qd, kd, vd, table, n_valid)
+            f32 = dt == torch.float32
+            _assert_close(got, want, F32_TOL if f32 else BF16_TOL,
+                          f"flash_decode_paged {dt}")
+            if f32:
+                f32_err = max(f32_err, _max_err(got, want))
+            else:
+                max_err = max(max_err, _max_err(got, want))
+            check(torch.equal(got, fd.flash_decode_cuda(qd, ks, vs, n_valid)),
+                  f"flash_decode_paged {dt} n_valid={n_valid}: not bitwise "
+                  f"equal to flash_decode on the gathered slab")
+    # a wider page tail, read through its leading corner in place
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    wide = [torch.zeros((P, bt) + PAGED["tail"], dtype=torch.bfloat16,
+                        device=dev) for _ in range(2)]
+    wide[0][..., :nkv, :dh] = kb
+    wide[1][..., :nkv, :dh] = vb
+    kc, vc = (w[..., :nkv, :dh] for w in wide)
+    check(not kc.is_contiguous(), "the corner view should be strided")
+    got = fd.flash_decode_paged_cuda(qb, kc, vc, table, rows)
+    _assert_close(got, fd.flash_decode_paged_plain(qb, kc, vc, table, rows),
+                  BF16_TOL, "flash_decode_paged on a (32, 128)-tail corner")
+    check(torch.equal(got, fd.flash_decode_paged_cuda(qb, kb, vb, table,
+                                                      rows)),
+          "flash_decode_paged on a corner view != on the contiguous pages")
+    # timing: arenas rotated through > 256 MB; k and v of one arena stacked
+    # so that the yardstick gathers both in one call
+    n_copy = max(1, min(32, math.ceil(ROTATE_BYTES / (2 * kb.numel() * 2))))
+    kvs = [torch.stack([kb, vb]) for _ in range(n_copy)]
+    run = lambda i: fd.flash_decode_paged_cuda(  # noqa: E731
+        qb, kvs[i][0], kvs[i][1], table, nv)
+    plain = lambda i: fd.flash_decode_paged_plain(  # noqa: E731
+        qb, kvs[i][0], kvs[i][1], table, nv)
+    q4 = qb[:, :, None]                                  # (B, nh, 1, dh)
+
+    def lib(i):
+        g = kvs[i][:, tl].reshape(2, B, W, nkv, dh)      # one gather
+        return F.scaled_dot_product_attention(
+            q4, g[0, :, :nv].transpose(1, 2), g[1, :, :nv].transpose(1, 2))
+
+    _assert_close(lib(0)[:, :, 0], plain(0), LIBRARY_TOL,
+                  "page gather + scaled_dot_product_attention yardstick")
+    n_bytes = 2 * (2 * B * nh * dh + 2 * B * nv * nkv * dh) + 4 * B * n_b
+    n_ops = 4.0 * B * nh * nv * dh
+    b, by = bound_ms(n_bytes, n_ops, "bf16")
+    out = dict(ms=device_ms(run, n_copy),
+               plain_ms=device_ms(plain, n_copy),
+               library_ms=device_ms(lib, n_copy),
+               library_call="page gather kv[:, table] + torch.nn.functional."
+                            "scaled_dot_product_attention, timed together",
+               bound_ms=b, bound_by=by, arena_pages=P)
+    tol = (f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; f32 "
+           f"rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g}); "
+           f"bitwise == flash_decode on the gathered slab (f32 and bf16); "
+           f"(32, 128)-tail corner read in place")
+    return max_err, tol, out
+
+
 KERNELS = [
     # (name, counter, source, replaces, the main path whose run its
     # "launches" reports)
@@ -307,6 +412,9 @@ KERNELS = [
      "src/repro/kernels/quant_matmul.py:79", "dftsp_w4a16"),
     ("flash_decode", "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:40", "dftsp_w8a16"),
+    ("flash_decode_paged", "flash_decode_paged",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:403", "continuous_w8a16"),
 ]
 
 
@@ -318,6 +426,13 @@ def kernel_phase():
             shape = (f"B={ATTN['B']} W={ATTN['W']} n_valid={ATTN['n_valid']} "
                      f"nh=nkv={ATTN['nh']} dh={ATTN['dh']} bf16, one call "
                      f"(one layer of a decode step)")
+        elif counter == "flash_decode_paged":
+            err, tol, t = flash_decode_paged_phase()
+            shape = (f"B={ATTN['B']} {ATTN['W'] // PAGED['bt']} blocks of "
+                     f"{PAGED['bt']} slots (W={ATTN['W']}) n_valid="
+                     f"{ATTN['n_valid']} nh=nkv={ATTN['nh']} dh={ATTN['dh']} "
+                     f"bf16 over {t['arena_pages']} pages, one call (one "
+                     f"layer of a decode step)")
         else:
             err, tol, both = quant_matmul_phase(counter)
             t = dict(both["decode"])
@@ -346,6 +461,7 @@ def small_reference_phase():
     from repro_torch import bridge
     from repro_torch.config import get_arch
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_arena import KVArena
     import numpy as np
     cfg = get_arch("bloom-3b").scaled(n_layers=2, d_model=256, n_heads=4,
                                       n_kv_heads=4, d_ff=512, vocab=2048,
@@ -366,8 +482,16 @@ def small_reference_phase():
               and np.array_equal(a.lengths, b.lengths),
               f"reduced float32 BLOOM at bits={bits}: card tokens "
               f"{a.tokens.tolist()} != CPU tokens {b.tokens.tolist()}")
+    a = gpu.generate_via_chunks(prompts, caps, k=5, quant_bits=8,
+                                arena=KVArena.for_engines(gpu, 8))
+    b = cpu.generate_via_chunks(prompts, caps, k=5, quant_bits=8,
+                                arena=KVArena.for_engines(cpu, 8))
+    check(np.array_equal(a.tokens, b.tokens)
+          and np.array_equal(a.lengths, b.lengths),
+          f"reduced float32 BLOOM, paged: card tokens {a.tokens.tolist()} "
+          f"!= CPU tokens {b.tokens.tolist()}")
     log("small reference: reduced float32 BLOOM, card == CPU tokens at "
-        "bits 0, 8, (8, 8), 4")
+        "bits 0, 8, (8, 8), 4, and paged (8-slot pages, k=5) at bits 8")
 
 
 def _timed(fn):
@@ -433,6 +557,141 @@ def serve_paths(engines, rate: float, n_epochs: int):
     return runs
 
 
+def continuous_phase(engine, rate: float = 10.0, n_epochs: int = 3,
+                     k: int = 16):
+    """``dftsp`` through ``ContinuousRuntime`` + ``EngineContinuousExecutor``
+    over a paged arena of half the slab's pages, counted on its own."""
+    from repro_torch.core.environment import paper_env
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_arena import KVArena
+    from repro_torch.serving.runtime import (ContinuousRuntime,
+                                             EngineContinuousExecutor)
+    arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"],
+                                shrink=PAGED["shrink"])
+    runtime = ContinuousRuntime(
+        paper_env("bloom-3b", "W8A16"), "dftsp",
+        EngineContinuousExecutor(engine, seed=0, arena=arena), k=k)
+    topups0 = engine.lease_topups
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = runtime.run(rate=rate, n_epochs=n_epochs, seed=0, warmup_epochs=0)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    log(f"continuous: dftsp over a {arena.n_pages}-page arena "
+        f"({PAGED['bt']}-slot pages, {PAGED['shrink']}x the slab), k={k}, "
+        f"{n_epochs} epochs at rate {rate}: served={m.served} "
+        f"dropped={m.dropped} shed={m.shed} tokens={m.generated_tokens} "
+        f"mid-epoch admissions={m.admitted_mid_epoch} top-up pages="
+        f"{m.kv_topup_pages} alloc_peak={arena.alloc_peak} mean block "
+        f"occupancy={m.mean_block_occupancy:.4f} methods="
+        f"{m.served_by_method} in {run_ms:.0f} ms; launches {counts}")
+    check(m.served > 0 and m.generated_tokens > 0,
+          f"continuous run served nothing: {m.served} requests, "
+          f"{m.generated_tokens} tokens")
+    for c in ("flash_decode_paged", "w8a16"):
+        check(counts[c] > 0, f"continuous: {c} was never launched "
+              f"(launches {counts})")
+    check(counts["flash_decode"] == 0,
+          f"continuous: flash_decode launched {counts['flash_decode']} times "
+          f"though every cohort is arena-backed")
+    check(m.arrived == m.served + m.dropped + m.shed
+          + len(m.final_queue_rids) + len(m.in_flight_rids),
+          f"continuous: requests not conserved: arrived {m.arrived}, served "
+          f"{m.served}, dropped {m.dropped}, shed {m.shed}, queued "
+          f"{len(m.final_queue_rids)}, in flight {len(m.in_flight_rids)}")
+    check(arena.free_pages == arena.total_pages,
+          f"continuous: {arena.total_pages - arena.free_pages} pages still "
+          f"leased after the drain")
+    check(m.kv_topup_pages == engine.lease_topups - topups0,
+          "continuous: top-up pages disagree with the engine's count")
+    return dict(served=m.served, dropped=m.dropped, shed=m.shed,
+                tokens=m.generated_tokens,
+                admitted_mid_epoch=m.admitted_mid_epoch,
+                topup_pages=m.kv_topup_pages, alloc_peak=arena.alloc_peak,
+                arena_pages=arena.n_pages,
+                mean_block_occupancy=m.mean_block_occupancy,
+                methods=m.served_by_method, run_ms=run_ms, launches=counts)
+
+
+def paged_equivalence_phase(engine, prompts, caps, k: int = 16):
+    """Chunked decode over the arena (K5), over the slab (K4) and
+    ``generate`` give bitwise equal tokens at W8A16; so do a paged and a
+    slab cohort refilled at step 40.  Also times one paged decode step,
+    eager and as a CUDA-graph replay."""
+    import numpy as np
+    from repro_torch.serving.kv_arena import ZERO_PAGE, KVArena
+    arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"])
+    (g, s, p), ms = zip(*(_timed(fn) for fn in (
+        lambda: engine.generate(prompts, caps),
+        lambda: engine.generate_via_chunks(prompts, caps, k=k),
+        lambda: engine.generate_via_chunks(prompts, caps, k=k,
+                                           arena=arena))))
+    for name, r in (("slab", s), ("paged", p)):
+        check(np.array_equal(r.tokens, g.tokens)
+              and np.array_equal(r.lengths, g.lengths),
+              f"generate_via_chunks ({name}, k={k}) != generate at W8A16")
+    half = len(prompts) // 2
+
+    def refilled(arena):
+        st = engine.start_chunked(prompts[:half], caps[:half], arena=arena)
+        st = engine.generate_chunked(st, 40)
+        st = engine.refill_chunked(st, list(range(half, len(prompts))),
+                                   prompts[half:], caps[half:], t_now=40)
+        while True:
+            st = engine.generate_chunked(st, k)
+            out, lengths, done, t = engine.poll_chunked(st)
+            if engine.exhausted(lengths, done, st.caps_host, t):
+                break
+        if arena is not None:
+            engine.release_all(st)
+        return out, lengths
+
+    (so, sl), (po, pl) = refilled(None), refilled(arena)
+    check(np.array_equal(so, po) and np.array_equal(sl, pl),
+          "paged cohort refilled at step 40 != slab cohort refilled at 40")
+    check(arena.free_pages == arena.total_pages,
+          "paged equivalence: pages still leased")
+    check(all(not leaf[:, ZERO_PAGE].any()
+              for leaf in arena.buffers().values()),
+          "the zero page was written")
+    log(f"paged == slab == generate at W8A16 ({len(prompts)} rows, k={k}): "
+        f"generate {ms[0]:.0f} ms, chunked slab {ms[1]:.0f} ms, chunked "
+        f"paged {ms[2]:.0f} ms; refilled at t=40 (rows {half}..): paged == "
+        f"slab, lengths {pl.tolist()}")
+
+    # one paged decode step of a full cohort at the mid position, eager and
+    # with no host work between its kernels
+    params = engine.params_for(8)
+    st = engine.start_chunked(prompts, [engine.n_max] * len(prompts),
+                              arena=arena)
+    engine._extend_leases(st, engine.n_max)
+    pages, table = arena.buffers(), st.table.device
+    pos = engine.s_max + engine.n_max // 2
+    cur = st.cur[:, None]
+
+    def step(i=0):
+        return engine.model.decode_step_paged(params, pages, table, cur, pos)
+
+    def steps(n=8):
+        for _ in range(n):
+            step()
+
+    steps(2)                                              # warm
+    _, step_ms = _timed(steps)
+    step_ms /= 8
+    dev_ms = device_ms(step)
+    engine.release_all(st)
+    log(f"paged decode step (B={len(prompts)}, pos={pos}): {step_ms:.2f} ms "
+        f"eager, {dev_ms:.2f} ms of device work (idle share "
+        f"{1.0 - dev_ms / step_ms:.3f})")
+    return dict(generate_ms=ms[0], chunked_slab_ms=ms[1],
+                chunked_paged_ms=ms[2], paged_step_ms=step_ms,
+                paged_step_device_ms=dev_ms,
+                paged_step_idle_share=1.0 - dev_ms / step_ms)
+
+
 def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                 n_max=N_MAX, rate: float = 10.0, n_epochs: int = 4):
     """Serve ``cfg`` through the main paths; returns what it measured."""
@@ -471,6 +730,9 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
               f"bits={bits}")
     log(f"slice: generate == generate_reference at W8A16, W8A8 and W4A16 "
         f"({batch} rows, {n_max} tokens)")
+
+    runs["continuous_w8a16"] = continuous_phase(engine)
+    paged = paged_equivalence_phase(engine, prompts, caps)
 
     # end-to-end costs per precision: prefill, then decode per step
     timings = {}
@@ -519,7 +781,7 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         f"{unembed['table_bytes'] / 1e9:.3f} GB read per step in "
         f"{unembed['matmul_ms']:.3f} ms; dequantizing it takes "
         f"{deq_ms:.1f} ms (not done per step)")
-    return dict(runs=runs, timings=timings, unembed=unembed)
+    return dict(runs=runs, timings=timings, unembed=unembed, paged=paged)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package, as the port's parameters.
+"""Parameters (and paged-arena contents) of the JAX package, as the port's.
 
 The JAX package's dense transformer keeps its params as nested dicts with
 every layer leaf stacked on axis 0 (it scans over layers); the port keeps
@@ -63,3 +63,20 @@ def to_device(params: Any, device) -> Any:
     if isinstance(params, list):
         return [to_device(v, device) for v in params]
     return None if params is None else params.to(device)
+
+
+def arena_pages_from_jax(arena, pages: Any) -> None:
+    """Copy a JAX arena's page buffers, handed over as numpy arrays
+    (``jax.device_get(jax_arena.buffers())``: ``{name: (L, P, bt, nkv',
+    dh')}``), into the port's ``KVArena`` ``arena`` (same leaves and
+    shapes), in place."""
+    bufs = arena.buffers()
+    if set(bufs) != set(pages):
+        raise ValueError(f"leaves {sorted(pages)} != the arena's "
+                         f"{sorted(bufs)}")
+    for name, buf in bufs.items():
+        src = to_tensor(pages[name], buf.device)
+        if tuple(src.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != the "
+                             f"arena's {tuple(buf.shape)}")
+        buf.copy_(src)

@@ -1,14 +1,27 @@
-// One-token GQA decode attention for Hopper (sm_90a).
+// One-token GQA decode attention for Hopper (sm_90a), over a slot cache
+// (K4) or through a block table over a page arena (K5).
 //
-// Replaces the Pallas TPU kernel _decode_kernel of
+// K4 replaces the Pallas TPU kernel _decode_kernel of
 // src/repro/kernels/flash_decode.py (wrapper repro/kernels/ops.py
 // flash_decode).  q (B, nh, dh) attends over the slot cache k/v
 // (B, W, nkv, dh); slots >= n_valid[b] are masked; the G = nh / nkv query
-// heads of one kv head share its tiles.  Online softmax in float32 (running
-// max, denominator, weighted sum), output divided by max(l, 1e-30), in
-// q's type.
+// heads of one kv head share its tiles.  Online softmax in float32
+// (running max, denominator, weighted sum), output divided by
+// max(l, 1e-30), in q's type.
 //
-// What bounds it on an H100: the bytes of the valid cache slots,
+// K5 replaces _paged_decode_kernel of the same file (wrapper
+// repro/kernels/ops.py flash_decode_paged): the same function, where slot
+// j of row b lives in page table[b, j / bt] at offset j % bt of the arena
+// (P, bt, nkv', dh').  The page, slot and head strides are arguments, so
+// the kernel reads the leading (nkv, dh) corner of a wider page tail as
+// the strided view it is, without a copy.  Both kernels are one body
+// templated on how a slot is addressed, so K5 walks the same 64-slot tiles
+// in the same order as K4 and, on the same logical values, is bitwise
+// equal to it (the paged engine path equals the slab path because of
+// this).  A masked slot's page is never read: the tile loop stops at
+// n_valid and the loads of the last tile stop at n_valid too.
+//
+// What bounds both on an H100: the bytes of the valid cache slots,
 // 2 * B * n_valid * nkv * dh * sizeof(T), against 3.35 TB/s; the arithmetic
 // is about one multiply-add per byte.
 //
@@ -51,12 +64,34 @@ __host__ __device__ inline size_t smem_floats(int G, int dh) {
   return (size_t)2 * G * dh + (size_t)2 * BS * ds + (size_t)G * BS + 3 * G;
 }
 
-template <typename T>
+// Element offset of (row b, logical slot s, kv head h, d = 0) in k and v.
+// K4: a contiguous slab (B, W, nkv, dh).
+struct SlabAddr {
+  int W, nkv, dh;
+  __device__ __forceinline__ size_t operator()(int b, int s, int h) const {
+    return (((size_t)b * W + s) * nkv + h) * dh;
+  }
+};
+
+// K5: page table[b, s / bt], offset s % bt, of a strided page arena whose
+// d_head axis is contiguous.
+struct PagedAddr {
+  const int* table;                // (B, n_b) int32
+  int n_b, bt;
+  long long page_stride, slot_stride, head_stride;
+  __device__ __forceinline__ size_t operator()(int b, int s, int h) const {
+    const int page = table[(size_t)b * n_b + s / bt];
+    return (size_t)page * page_stride + (size_t)(s % bt) * slot_stride
+         + (size_t)h * head_stride;
+  }
+};
+
+template <typename T, typename Addr>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ n_valid,
                     int nv_scalar, T* __restrict__ out, int nh, int nkv,
-                    int W, int dh, float scale) {
+                    int W, int dh, float scale, Addr addr) {
   extern __shared__ float smem[];
   const int G = nh / nkv, ds = row_stride(dh);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -84,7 +119,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int bs = min(BS, nv - s0);
     for (int i = tid; i < bs * dh; i += THREADS) {
       const int j = i / dh, d = i % dh;
-      const size_t src = (((size_t)b * W + s0 + j) * nkv + h) * dh + d;
+      const size_t src = addr(b, s0 + j, h) + d;
       ks[j * ds + d] = to_f32(k[src]);
       vs[j * ds + d] = to_f32(v[src]);
     }
@@ -134,21 +169,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, typename Addr>
 int launch(const void* q, const void* k, const void* v, const int* n_valid,
            int nv_scalar, void* out, int B, int nh, int nkv, int W, int dh,
-           float scale, cudaStream_t stream) {
+           float scale, Addr addr, cudaStream_t stream) {
   const size_t bytes = smem_floats(nh / nkv, dh) * sizeof(float);
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, Addr>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(nkv, B);
-  flash_decode_kernel<T><<<grid, THREADS, bytes, stream>>>(
+  flash_decode_kernel<T, Addr><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      n_valid, nv_scalar, static_cast<T*>(out), nh, nkv, W, dh, scale);
+      n_valid, nv_scalar, static_cast<T*>(out), nh, nkv, W, dh, scale, addr);
   return (int)cudaGetLastError();
 }
 
@@ -164,8 +199,29 @@ int flash_decode(const void* q, const void* k, const void* v,
                  int nkv, int W, int dh, float scale, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto nvp = static_cast<const int*>(n_valid);
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, st)
-              : launch<float>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, st);
+  const SlabAddr addr{W, nkv, dh};
+  return bf16 ? launch<__nv_bfloat16>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, addr, st)
+              : launch<float>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, addr, st);
+}
+
+// q (B, nh, dh), out (B, nh, dh) contiguous; k/v: page arenas of one layer
+// with element strides page_stride, slot_stride, head_stride and a
+// contiguous d_head axis (a leading-corner view of a wider tail is fine);
+// table (B, n_b) int32 of page ids; n_valid as for flash_decode, at most
+// n_b * bt.  k and v share their strides.
+int flash_decode_paged(const void* q, const void* k, const void* v,
+                       const void* table, const void* n_valid, int nv_scalar,
+                       void* out, int B, int nh, int nkv, int n_b, int bt,
+                       int dh, long long page_stride, long long slot_stride,
+                       long long head_stride, float scale, int bf16,
+                       void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto nvp = static_cast<const int*>(n_valid);
+  const PagedAddr addr{static_cast<const int*>(table), n_b, bt, page_stride,
+                       slot_stride, head_stride};
+  const int W = n_b * bt;
+  return bf16 ? launch<__nv_bfloat16>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, addr, st)
+              : launch<float>(q, k, v, nvp, nv_scalar, out, B, nh, nkv, W, dh, scale, addr, st);
 }
 
 }  // extern "C"

@@ -79,11 +79,14 @@ def build_all() -> Dict[str, Path]:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     sigs = {
         "qmm_a16": (P, P, P, P, P, I, I, I, I, I, I, I, P),
         "qmm_a8": (P, P, P, P, P, P, I, I, I, I, I, I, P),
         "flash_decode": (P, P, P, P, I, P, I, I, I, I, I, F, I, P),
+        "flash_decode_paged": (P, P, P, P, P, I, P, I, I, I, I, I, I, L, L,
+                               L, F, I, P),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

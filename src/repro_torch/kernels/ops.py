@@ -93,3 +93,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cuda(q):
         return _fd.flash_decode_cuda(q.contiguous(), k, v, n_valid)
     return _fd.flash_decode_plain(q, k, v, n_valid)
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, table: torch.Tensor,
+                       n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
+    """``flash_decode`` read through a block table: q (B, nh, dh) against
+    k/v pages (P, bt, nkv, dh) (possibly the leading-corner view of a wider
+    page tail), where slot j of row b lives in page ``table[b, j // bt]``
+    at offset ``j % bt``; slots >= n_valid are masked."""
+    if _on_cuda(q):
+        return _fd.flash_decode_paged_cuda(q.contiguous(), k_pages, v_pages,
+                                           table, n_valid)
+    return _fd.flash_decode_paged_plain(q, k_pages, v_pages, table, n_valid)

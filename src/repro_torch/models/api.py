@@ -22,6 +22,9 @@ class Model:
     prefill: Callable[..., Any]              # (params, batch, cache_len) -> (last logits, cache)
     decode_step: Callable[..., Any]          # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable[..., Cache]         # (batch, cache_len, device)
+    # (params, pages, table, tokens, pos) -> (logits, pages); None for a
+    # family without a slot-cache layout the block arena can virtualize
+    decode_step_paged: Any = None
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -35,4 +38,6 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill=functools.partial(transformer.prefill, cfg),
         decode_step=functools.partial(transformer.decode_step, cfg),
         init_cache=functools.partial(transformer.init_cache, cfg),
+        decode_step_paged=functools.partial(transformer.decode_step_paged,
+                                            cfg),
     )

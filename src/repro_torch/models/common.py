@@ -1,12 +1,12 @@
 """Shared building blocks of the dense transformer (port of the dense
 subset of ``repro.models.common``): norms, rotary embeddings, GQA
-attention (prefill and decode over a slot cache), FFN.
+attention (prefill, and decode over a slot cache or a paged arena), FFN.
 
 Functions take params explicitly, as in the JAX package, with tensors in
 the JAX package's layouts.  Prefill attention is plain matmul/softmax (it
 is plain XLA in the JAX package); decode attention goes through
-``kernels.ops.flash_decode`` (``use_kernel``, the default; switching it off
-is for CPU tensors only).  Cache writes
+``kernels.ops.flash_decode`` / ``flash_decode_paged`` (``use_kernel``, the
+default; switching it off is for CPU tensors only).  Cache writes
 update the cache tensors in place (the JAX package returns new arrays):
 a decode step then costs no cache copy.
 """
@@ -258,6 +258,56 @@ def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
     return decode_attention(p, cfg, x, cache["k"], cache["v"], pos,
                             use_kernel=use_kernel)
+
+
+def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           pages: Dict[str, torch.Tensor],
+                           table: torch.Tensor, pos: int,
+                           use_kernel: bool = True) -> torch.Tensor:
+    """One-token decode step over a PAGED cache.
+
+    pages: one layer's view of the node-wide arena, {"k", "v"} of shape
+    (P, block_tokens, nkv', dh'); table: (B, n_b) int32 on x's device,
+    mapping logical block j of row b to its physical page.  Page tails may
+    be wider than this model's (nkv, dh) (the node's pool provisions the
+    max over hosted cohorts), so the write targets and the read takes the
+    leading (nkv, dh) corner, a strided view read in place.  The token is
+    written in place at page ``table[b, pos // bt]``, offset ``pos % bt``;
+    dead rows' tables point at the trash page, several rows at once, and
+    which of their duplicate writes lands is unspecified on CUDA: no live
+    row reads that page.  Attention reads the row's logical blocks through
+    ``flash_decode_paged``; ``use_kernel=False`` gathers them into the
+    contiguous (B, n_b * bt, nkv, dh) view and takes the plain masked
+    softmax (CPU tensors only).  The fused kernel tier (K7) is not ported,
+    so there is no fused branch."""
+    if cfg.kv_bits == 8:
+        raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
+    if not use_kernel and x.is_cuda:
+        raise ValueError("use_kernel=False: the plain decode attention "
+                         "runs on the CPU only; CUDA tensors go through "
+                         "the flash_decode_paged kernel")
+    B = x.shape[0]
+    nkv, dh = cfg.n_kv_heads, cfg.d_head
+    pk, pv = pages["k"], pages["v"]
+    bt = pk.shape[1]
+    n_b = table.shape[1]
+    W = n_b * bt
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k1, v1 = qkv_proj(p, cfg, x, positions)
+    page = table[:, pos // bt]                                   # (B,)
+    pk[page, pos % bt, :nkv, :dh] = k1[:, 0].to(pk.dtype)
+    pv[page, pos % bt, :nkv, :dh] = v1[:, 0].to(pv.dtype)
+    n_valid = min(pos + 1, W)
+    kc, vc = pk[..., :nkv, :dh], pv[..., :nkv, :dh]
+    if use_kernel:
+        out = kops.flash_decode_paged(q[:, 0], kc, vc, table, n_valid)[:, None]
+    else:
+        idx = table.long()
+        kd = kc[idx].reshape(B, W, nkv, dh)
+        vd = vc[idx].reshape(B, W, nkv, dh)
+        mask = (torch.arange(W, device=x.device) < n_valid)[None, None, None, None, :]
+        out = gqa_attention(q, kd, vd, mask)
+    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
 def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, W: int

@@ -5,7 +5,8 @@ Params are a dict: ``embed`` (Vp, D), ``layers`` (a list of per-layer
 dicts {"attn", "ffn", "norm1", "norm2"}; the JAX package stacks them on
 axis 0 and scans), ``final_norm`` and, without tied embeddings,
 ``lm_head``.  The decode cache is a list of per-layer {"k", "v"} slot
-caches (B, W, nkv, dh), updated in place by ``decode_step``.
+caches (B, W, nkv, dh), updated in place by ``decode_step``;
+``decode_step_paged`` reads and writes a paged arena instead.
 """
 from __future__ import annotations
 
@@ -112,3 +113,24 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = x + common.ffn_apply(lp["ffn"], cfg, h)
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], cache
+
+
+def decode_step_paged(cfg: ModelConfig, params: Params,
+                      pages: Dict[str, torch.Tensor], table: torch.Tensor,
+                      tokens: torch.Tensor, pos: int, use_kernel: bool = True):
+    """One decode iteration over the PAGED cache.  ``pages``: arena leaves
+    stacked over layers, {"k", "v"} of shape (L, P, block_tokens, nkv',
+    dh'); layer l works on the views ``pages[name][l]``.  ``table``: (B,
+    n_b) int32 block table, shared by every layer (one page id covers all
+    L layers of a row's block).  Updates ``pages`` in place and returns
+    (logits, pages)."""
+    x = _table(params)[tokens]
+    for l, lp in enumerate(params["layers"]):
+        h = common.apply_norm(cfg.norm, lp["norm1"], x)
+        x = x + common.decode_attention_paged(
+            lp["attn"], cfg, h, {name: leaf[l] for name, leaf in pages.items()},
+            table, pos, use_kernel)
+        h = common.apply_norm(cfg.norm, lp["norm2"], x)
+        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+    x = common.apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(cfg, params, x)[:, 0], pages

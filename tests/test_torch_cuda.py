@@ -90,6 +90,73 @@ def test_flash_decode_cuda_vs_plain(cuda, G, dh):
                                tfd.flash_decode_plain(*bf, 57), **BF16_TOL)
 
 
+def _paged_inputs(B, nh, nkv, dh, n_b, bt, device, tail=None, seed=0):
+    """q, k/v pages of a shuffled arena (P = B * n_b + 2, possibly with a
+    wider (nkv', dh') tail, returned as the leading-corner view), a table
+    mapping each row's blocks to distinct pages, and ragged n_valid."""
+    rng = np.random.default_rng(seed)
+    P = B * n_b + 2
+    nkv_t, dh_t = tail or (nkv, dh)
+    q = rng.standard_normal((B, nh, dh)).astype(np.float32)
+    kp = rng.standard_normal((P, bt, nkv_t, dh_t)).astype(np.float32)
+    vp = rng.standard_normal((P, bt, nkv_t, dh_t)).astype(np.float32)
+    table = (2 + rng.permutation(B * n_b)).reshape(B, n_b).astype(np.int32)
+    nv = rng.integers(1, n_b * bt + 1, size=(B,)).astype(np.int32)
+    t = [torch.from_numpy(a).to(device) for a in (q, kp, vp, table, nv)]
+    return t[0], t[1][..., :nkv, :dh], t[2][..., :nkv, :dh], t[3], t[4]
+
+
+def _gathered(pages, table):
+    B, n_b = table.shape
+    g = pages[table.long()]
+    return g.reshape((B, n_b * pages.shape[1]) + tuple(g.shape[3:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,dh,bt", [(1, 80, 16), (1, 80, 8), (4, 64, 16),
+                                     (2, 80, 32)])
+def test_flash_decode_paged_cuda_vs_plain(cuda, G, dh, bt):
+    q, kp, vp, table, nv = _paged_inputs(3, 2 * G, 2, dh, 10, bt, cuda)
+    for n_valid in (nv, 10 * bt, 1, bt + 3):
+        got = tfd.flash_decode_paged_cuda(q, kp, vp, table, n_valid)
+        torch.testing.assert_close(
+            got, tfd.flash_decode_paged_plain(q, kp, vp, table, n_valid),
+            rtol=1e-4, atol=1e-4)
+    bf = [t.to(torch.bfloat16) for t in (q, kp, vp)]
+    torch.testing.assert_close(
+        tfd.flash_decode_paged_cuda(*bf, table, nv),
+        tfd.flash_decode_paged_plain(*bf, table, nv), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_bitwise_equals_slab_kernel(cuda, dtype):
+    """K5 walks the same tiles in the same order as K4: on the same logical
+    values the two are bitwise equal."""
+    q, kp, vp, table, nv = (t.to(dtype) if t.is_floating_point() else t
+                            for t in _paged_inputs(4, 4, 4, 80, 12, 16, cuda))
+    ks, vs = _gathered(kp, table), _gathered(vp, table)
+    for n_valid in (nv, 12 * 16, 100):
+        assert torch.equal(
+            tfd.flash_decode_paged_cuda(q, kp, vp, table, n_valid),
+            tfd.flash_decode_cuda(q, ks, vs, n_valid))
+
+
+@pytest.mark.cuda
+def test_flash_decode_paged_reads_a_wider_tail_in_place(cuda):
+    """A (32, 128)-tail arena read through its [..., :4, :80] corner: the
+    strided view goes to the kernel as it is."""
+    q, kp, vp, table, nv = _paged_inputs(3, 4, 4, 80, 6, 16, cuda,
+                                         tail=(8, 128))
+    assert not kp.is_contiguous()
+    got = tfd.flash_decode_paged_cuda(q, kp, vp, table, nv)
+    torch.testing.assert_close(
+        got, tfd.flash_decode_paged_plain(q, kp, vp, table, nv),
+        rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, tfd.flash_decode_paged_cuda(
+        q, kp.contiguous(), vp.contiguous(), table, nv))
+
+
 @pytest.mark.cuda
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     x, q, s = _mm_inputs(4, 128, 64, 8, cuda)
@@ -98,9 +165,31 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     ops.qmatmul(x.reshape(2, 2, 128), w)
     qd, kd, vd, nv = _decode_inputs(2, 4, 4, 80, 16, cuda)
     ops.flash_decode(qd, kd, vd, nv)
+    qp, kp, vp, table, nvp = _paged_inputs(2, 4, 4, 80, 3, 8, cuda)
+    ops.flash_decode_paged(qp, kp, vp, table, nvp)
     counts = ops.launch_counts()
     assert counts["w8a8"] == 1 and counts["flash_decode"] == 1
+    assert counts["flash_decode_paged"] == 1
     assert counts["w8a16"] == counts["w4a16"] == 0
+
+
+@pytest.mark.cuda
+def test_paged_engine_equals_slab_engine_on_the_card(cuda):
+    from repro_torch.serving.engine import tiny_engine
+    from repro_torch.serving.kv_arena import KVArena
+    eng = tiny_engine("bloom-3b", batch_capacity=3, s_max=16, n_max=12,
+                      quant_bits=8, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (5, 16, 9)]
+    want = eng.generate(prompts, [12, 4, 7])
+    ops.reset_launch_counts()
+    for k in (1, 5):
+        arena = KVArena.for_engines(eng, block_tokens=4)
+        got = eng.generate_via_chunks(prompts, [12, 4, 7], k=k, arena=arena)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        np.testing.assert_array_equal(got.lengths, want.lengths)
+        assert arena.free_pages == arena.total_pages
+    assert ops.launch_counts()["flash_decode_paged"] > 0
 
 
 @pytest.mark.cuda
@@ -168,8 +257,21 @@ def test_flash_decode_wrapper_refuses_cpu_tensors():
         tfd.flash_decode_cuda(q.to(torch.float16), k, v, nv)
 
 
+def test_flash_decode_paged_wrapper_refuses_cpu_tensors():
+    q, kp, vp, table, nv = _paged_inputs(2, 4, 2, 80, 3, 8, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.flash_decode_paged_cuda(q, kp, vp, table, nv)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_paged_cuda(q.to(torch.float16), kp, vp, table, nv)
+
+
 def test_ops_refuse_other_devices():
     x = torch.zeros((2, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.quant_matmul(x, torch.zeros((4, 4), dtype=torch.int8),
                          torch.ones(4))
+    q = torch.zeros((2, 4, 8), device="meta")
+    pages = torch.zeros((5, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_decode_paged(q, pages, pages,
+                               torch.zeros((2, 3), dtype=torch.int32), 5)

@@ -27,8 +27,16 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
-print(len(names), ",".join(bad) or "-")
+print(len(names), ",".join(bad) or "-", ",".join(names))
 """
+
+# the modules of the continuous slice, named so that a rename or a lost
+# module fails here and not only in the tests that use it
+CONTINUOUS = ["repro_torch.serving.slo", "repro_torch.serving.kv_arena",
+              "repro_torch.serving.engine", "repro_torch.serving.runtime",
+              "repro_torch.kernels.flash_decode", "repro_torch.kernels.ops",
+              "repro_torch.models.common", "repro_torch.models.transformer",
+              "repro_torch.bridge"]
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
@@ -36,9 +44,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split()
-    assert int(n) >= 30, out.stdout
+    n, bad, names = out.stdout.split()
+    assert int(n) >= 32, out.stdout
     assert bad == "-", f"repro_torch pulled in: {bad}"
+    missing = set(CONTINUOUS) - set(names.split(","))
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in

@@ -82,6 +82,55 @@ def test_flash_decode_plain_vs_ref(G, dh):
     np.testing.assert_allclose(got1, want1, rtol=1e-5, atol=1e-5)
 
 
+def _paged_inputs(B, nh, nkv, dh, n_b, bt, seed=0):
+    """A scrambled page arena with garbage outside the table's pages."""
+    rng = np.random.default_rng(seed)
+    P = 2 + B * n_b + 3
+    q = rng.standard_normal((B, nh, dh)).astype(np.float32)
+    kp = rng.standard_normal((P, bt, nkv, dh)).astype(np.float32)
+    vp = rng.standard_normal((P, bt, nkv, dh)).astype(np.float32)
+    table = (2 + rng.permutation(P - 2)[:B * n_b]).reshape(B, n_b)
+    return q, kp, vp, table.astype(np.int32)
+
+
+@pytest.mark.parametrize("G,dh,bt", [(1, 80, 8), (1, 80, 16), (2, 64, 4)])
+def test_flash_decode_paged_plain_vs_jax_gather_path(G, dh, bt):
+    """The plain paged version equals the JAX package's gather path
+    (``pages[table]`` into a slab, masked ``gqa_attention``) and, bitwise,
+    ``flash_decode_plain`` on the gathered slab, with n_valid on, one
+    under and one over page edges."""
+    from repro.models.common import gqa_attention
+    B, n_b = 6, 5
+    q, kp, vp, table = _paged_inputs(B, 2 * G, 2, dh, n_b, bt)
+    W = n_b * bt
+    nv = np.array([1, bt - 1, bt, bt + 1, W - 1, W], np.int32)
+    kd, vd = (jnp.asarray(p)[jnp.asarray(table)].reshape(B, W, 2, dh)
+              for p in (kp, vp))
+    mask = (jnp.arange(W)[None, :] < jnp.asarray(nv)[:, None])
+    want = np.asarray(gqa_attention(jnp.asarray(q)[:, None], kd, vd,
+                                    mask[:, None, None, None, :]))[:, 0]
+    t = [torch.from_numpy(a) for a in (q, kp, vp, table, nv)]
+    got = tfd.flash_decode_paged_plain(*t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    slab = [torch.from_numpy(np.array(a)) for a in (kd, vd)]
+    assert torch.equal(got, tfd.flash_decode_plain(t[0], *slab, t[4]))
+    assert torch.equal(ops.flash_decode_paged(*t[:4], 7),
+                       tfd.flash_decode_plain(t[0], *slab, 7))
+
+
+def test_flash_decode_paged_plain_reads_a_corner_view():
+    q, kp, vp, table = _paged_inputs(3, 2, 2, 80, 4, 8, seed=1)
+    wide = [np.zeros(p.shape[:2] + (4, 128), np.float32) for p in (kp, vp)]
+    for w, p in zip(wide, (kp, vp)):
+        w[..., :2, :80] = p
+    t = [torch.from_numpy(a) for a in (q, table)]
+    corner = [torch.from_numpy(w)[..., :2, :80] for w in wide]
+    got = tfd.flash_decode_paged_plain(t[0], *corner, t[1], 20)
+    want = tfd.flash_decode_paged_plain(t[0], torch.from_numpy(kp),
+                                        torch.from_numpy(vp), t[1], 20)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("bits,act_bits,tier", [(8, 16, "w8a16"),
                                                 (4, 16, "w4a16"),
                                                 (8, 8, "w8a8")])
@@ -103,6 +152,7 @@ def test_ops_cpu_tensors_take_the_plain_version(bits, act_bits, tier):
                                       w.scale.reshape(-1), bits)
     np.testing.assert_array_equal(got.reshape(6, 24).numpy(), want.numpy())
     assert ops.launch_counts()[tier] == 0
+    assert not any(ops.launch_counts().values())
 
 
 def test_decode_tier_and_fused_gate():
