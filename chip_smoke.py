@@ -13,18 +13,26 @@ Phases (any failure exits non-zero and prints no result):
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
    once).
 3. Kernels: each hand-written kernel is held against its plain PyTorch
-   version at the shapes BLOOM-3B's serving path gives it (decode M = 8 and
+   version and timed beside its bound, its plain version and the library
+   call (or composition of calls) that computes the same function.  K1-K5
+   at the shapes BLOOM-3B's serving path gives them (decode M = 8 and
    prefill M = 8 * 512 for the quantized matmuls; B = 8, W = 640, 32 heads
    of 80 for decode attention, over a slab and, paged, through a block
-   table of 16-slot pages) and timed beside its bound, its plain version
-   and one PyTorch library call.  The paged kernel must also be bitwise
-   equal to the slab kernel on the gathered slab, and read the leading
-   corner of a wider (32, 128) page tail in place.
-4. Small reference: a reduced float32 BLOOM served on the card through the
-   kernels gives the same greedy tokens as the same weights served on the
-   CPU through the plain versions, slab and paged.
+   table of 16-slot pages); the paged kernel must be bitwise equal to the
+   slab kernel on the gathered slab and read the leading corner of a wider
+   (32, 128) page tail in place.  The fused int8 tier K6 (slab) and K7
+   (paged) at BLOOM-7B1's decode shape (B = 8, W = 640, 32 heads of 128,
+   D = 4096, int8 weights), W8A16 and W8A8, bf16 and float32, at positions
+   0, 576, 640 and 647 (the eviction slot): K7 bitwise equal to K6 on the
+   gathered slab and read through a wider tail's corner; K6 also at 32 x
+   80 (BLOOM-3B's geometry, which the gate keeps off the tier); K4 and K5
+   also at d_head 128.
+4. Small reference: reduced float32 BLOOM-3B (all precisions) and
+   BLOOM-7B1 (d_head 128, the fused tier at W8A16 and W8A8) served on the
+   card through the kernels give the same greedy tokens as the same
+   weights served on the CPU through the plain versions, slab and paged.
 5. Slice: full-width BLOOM-3B (30 layers, d_model 2560, vocab 250,880,
-   bfloat16, random weights from a seed) serves a few epochs through
+   bfloat16, random weights from a seed) serves four epochs through
    ``EpochRuntime`` + ``EngineExecutor``, three ways: ``dftsp`` at W8A16
    (the default), ``dftsp:quant=auto,split=true`` (the scheduler picks the
    method per epoch, W8A8 among them) and ``dftsp`` deployed at W4A16 on a
@@ -40,6 +48,19 @@ Phases (any failure exits non-zero and prints no result):
    On the same engine, chunked decode over the arena, chunked decode over
    the slab and ``generate`` give bitwise equal tokens, and so do a paged
    and a slab cohort refilled at step 40.
+7. BLOOM-7B1 (30 layers, d_model 4096, 32 heads of 128, bf16), once
+   BLOOM-3B's engines are freed, on a W8 engine (B = 8, s' = 512, n_max =
+   128), each path counted on its own: ``dftsp`` epochs at W8A16 (K6 and
+   W8A16 launch, no unfused decode kernel); ``dftsp`` continuously at W8A16
+   over an arena of half the slab's pages (K7); and
+   ``dftsp:quant=auto,split=true,calib=measured`` continuously over the
+   arena, which calibrates on the card at the start of the run (measured
+   betas, alphas and swap costs, printed with the methods the scheduler
+   picked per cohort; the launches of calibration and of serving are
+   reported apart).  ``generate == generate_reference`` and paged == slab
+   == ``generate`` (with a cohort refilled at step 40) at W8A16 and W8A8.
+   The decode step is timed eager and as one CUDA graph, fused and with the
+   fused gate forced off.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -84,6 +105,15 @@ PAGED = dict(bt=16, shrink=0.5, tail=(32, 128))
 # the library yardstick rounds its probabilities to bf16 before P @ V
 LIBRARY_TOL = dict(rtol=2 ** -7, atol=1e-2)
 ROTATE_BYTES = 256e6                        # > 5x the 50 MB L2
+# BLOOM-7B1's decode step, the fused tier's shape: one layer's attention
+ATTN7 = dict(B=BATCH, D=4096, nh=32, nkv=32, dh=128, W=S_MAX + N_MAX,
+             n_valid=S_MAX + N_MAX // 2)
+# a wider page tail than BLOOM-7B1's (32, 128), read through its corner
+TAIL7 = (40, 160)
+# the library composition of the fused function rounds q, k, v and the
+# attention output to bf16 between its calls: held by the relative error
+# of the whole output
+LIBRARY_REL = 0.03
 
 
 def log(msg: str) -> None:
@@ -401,6 +431,275 @@ def flash_decode_paged_phase():
     return max_err, tol, out
 
 
+def _fused_weights(D, nh, nkv, dh, gen, dev, act_bits=16):
+    """int8 wq, wk, wv, wo of one layer (from normal / sqrt(fan-in)) as
+    the 8 kernel operands (int8, flat float32 scales), and the same
+    weights dequantized to bf16 for the library composition."""
+    from repro_torch.quant import ptq
+    ops_, deq = [], []
+    for shape in ((D, nh * dh), (D, nkv * dh), (D, nkv * dh), (nh * dh, D)):
+        t = ptq.quantize(torch.randn(shape, generator=gen, device=dev)
+                         / math.sqrt(shape[0]), 8, act_bits=act_bits)
+        ops_ += [t.q, t.scale.reshape(-1)]
+        deq.append(ptq.dequantize(ptq.QTensor(t.q, t.scale, 8, shape,
+                                              torch.bfloat16)))
+    return ops_, deq
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def fused_tolerances(dt, a8, ws, v_cache, want):
+    """Tolerances of K6/K7 against their plain versions, for (o, k1, v1).
+
+    k1 and v1 are rounded once from float32 sums taken in another order:
+    the matmul tolerances (one bf16 ulp, or 1e-4 in float32).  o is the
+    sum of nkv per-head partials, each rounded to x's type and added in
+    that type head by head, as the TPU kernel accumulates: in bf16 a
+    partial or a running sum a last bit apart moves an element by an ulp
+    of the output's largest magnitude, so atol = 2^-6 * max|o|.  With a8
+    the attention row (G * dh values) is quantized to int8 again on each
+    side from float32 values that differ in their last bits: an element on
+    a rounding boundary lands one step apart, which moves o by at most
+    sx * max|wo|, with sx <= max|v| / 127 (attention is a convex
+    combination of v); two such steps are allowed."""
+    o_w, _, v1 = want
+    flip = 0.0
+    if a8:
+        vmax = max(float(v_cache.abs().max()), float(v1.abs().max()))
+        wo, so = ws[6], ws[7]
+        flip = 2 * vmax / 127 * float((wo.abs().float() * so).max())
+    if dt == torch.float32:
+        kv, o = dict(F32_TOL), dict(rtol=1e-4, atol=1e-4 + flip)
+    else:
+        kv = dict(BF16_TOL)
+        o = dict(rtol=2 ** -7,
+                 atol=2 ** -6 * float(o_w.float().abs().max()) + flip)
+    return o, kv, kv
+
+
+def _fused_check(fn_cuda, fn_plain, x, ws, kv_args, pos, W, dh, a8, what):
+    """One K6/K7 call against its plain version at position ``pos``;
+    returns the kernel's (o, k1, v1) and the largest error."""
+    from repro_torch.kernels import ops
+    nv, ev = min(pos, W), (pos % W if pos >= W else -1)
+    cos, sin = ops._rope_rows(pos, dh, 1e4, x.device)
+    got = fn_cuda(x, *ws, *kv_args, nv, ev, cos, sin, True, a8)
+    want = fn_plain(x, *ws, *kv_args, nv, ev, cos, sin, True, a8)
+    tols = fused_tolerances(x.dtype, a8, ws, kv_args[1], want)
+    err = 0.0
+    for name, g, w, tol in zip(("o", "k1", "v1"), got, want, tols):
+        _assert_close(g, w, tol, f"{what} pos={pos} a8={a8} {name}")
+        err = max(err, _max_err(g, w))
+    return got, err
+
+
+def fused_phase():
+    """K6 and K7 at BLOOM-7B1's decode shape (B=8, W=640, n_valid 576,
+    32 x 128, D=4096, bf16, int8 weights), a16 and a8, each against its
+    plain version (bf16, and float32), at positions 0 (no valid slot),
+    576, 640 (a full window) and 647 (the eviction slot); K7 through a
+    random permutation of 16-slot pages of an arena of half the slab's
+    pages, bitwise equal to K6 on the gathered slab, and through the corner
+    of a wider page tail in place; one K6 case at BLOOM-3B's 32 x 80
+    (D=2560), whose d_head the gate keeps off this tier; K4 and K5 at
+    d_head 128.  Times K6 and K7 beside their bound, their plain versions
+    and the library composition of the same function."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_arena import N_RESERVED
+    B, D, nh, nkv, dh, W, nv = (ATTN7[k] for k in ("B", "D", "nh", "nkv",
+                                                   "dh", "W", "n_valid"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bt = PAGED["bt"]
+    n_b = W // bt
+    P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
+    table = torch.stack([N_RESERVED + torch.randperm(
+        P - N_RESERVED, generator=gen, device=dev)[:n_b]
+        for _ in range(B)]).to(torch.int32)
+    tl = table.long()
+
+    def gather(pages):
+        return pages[tl].reshape((B, W) + tuple(pages.shape[2:]))
+
+    x = torch.randn((B, D), generator=gen, device=dev)
+    kp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    vp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    ks, vs = gather(kp), gather(vp)
+    errs = {"K6": [0.0, 0.0], "K7": [0.0, 0.0]}        # [bf16, f32]
+    wsets = {}
+    for a8 in (False, True):
+        ws, deq = _fused_weights(D, nh, nkv, dh, gen, dev, 8 if a8 else 16)
+        wsets[a8] = (ws, deq)
+        for dt, col in ((torch.bfloat16, 0), (torch.float32, 1)):
+            xd, kd, vd, ksd, vsd = (t.to(dt) for t in (x, kp, vp, ks, vs))
+            for pos in ((nv, 0, W, W + 7) if dt == torch.bfloat16
+                        else (nv, W + 7)):
+                g6, e6 = _fused_check(fd.flash_decode_fused_cuda,
+                                      fd.flash_decode_fused_plain, xd, ws,
+                                      (ksd, vsd), pos, W, dh, a8,
+                                      f"flash_decode_fused {dt}")
+                g7, e7 = _fused_check(fd.flash_decode_fused_paged_cuda,
+                                      fd.flash_decode_fused_paged_plain, xd,
+                                      ws, (kd, vd, table), pos, W, dh, a8,
+                                      f"flash_decode_fused_paged {dt}")
+                errs["K6"][col] = max(errs["K6"][col], e6)
+                errs["K7"][col] = max(errs["K7"][col], e7)
+                check(all(torch.equal(a, b) for a, b in zip(g7, g6)),
+                      f"flash_decode_fused_paged {dt} pos={pos} a8={a8}: "
+                      f"not bitwise equal to flash_decode_fused on the "
+                      f"gathered slab")
+    # a wider page tail, read through its leading corner in place
+    ws = wsets[False][0]
+    xb, kb, vb = (t.to(torch.bfloat16) for t in (x, kp, vp))
+    wide = [torch.zeros((P, bt) + TAIL7, dtype=torch.bfloat16, device=dev)
+            for _ in range(2)]
+    wide[0][..., :nkv, :dh] = kb
+    wide[1][..., :nkv, :dh] = vb
+    kc, vc = (w[..., :nkv, :dh] for w in wide)
+    check(not kc.is_contiguous(), "the corner view should be strided")
+    gc, _ = _fused_check(fd.flash_decode_fused_paged_cuda,
+                         fd.flash_decode_fused_paged_plain, xb, ws,
+                         (kc, vc, table), nv, W, dh, False,
+                         f"flash_decode_fused_paged on a {TAIL7}-tail corner")
+    cos, sin = ops._rope_rows(nv, dh, 1e4, dev)
+    gp = fd.flash_decode_fused_paged_cuda(xb, *ws, kb, vb, table, nv, -1,
+                                          cos, sin)
+    check(all(torch.equal(a, b) for a, b in zip(gc, gp)),
+          "flash_decode_fused_paged on a corner view != on the contiguous "
+          "pages")
+    # BLOOM-3B's geometry: the kernel takes d_head 80 (the gate does not)
+    g3 = torch.Generator(device=dev).manual_seed(8)
+    D3, dh3 = 2560, ATTN["dh"]
+    x3 = torch.randn((B, D3), generator=g3, device=dev).to(torch.bfloat16)
+    c3 = [torch.randn((B, W, nkv, dh3), generator=g3, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    for a8 in (False, True):
+        ws3, _ = _fused_weights(D3, nh, nkv, dh3, g3, dev, 8 if a8 else 16)
+        _fused_check(fd.flash_decode_fused_cuda, fd.flash_decode_fused_plain,
+                     x3, ws3, c3, nv, W, dh3, a8,
+                     "flash_decode_fused at 32 x 80")
+    del ws3, c3
+    # K4 and K5 at d_head 128 (BLOOM-7B1's W16A16 and W4A16 cohorts)
+    q = torch.randn((B, nh, dh), generator=gen, device=dev)
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        qd, kd, vd, ksd, vsd = (t.to(dt) for t in (q, kp, vp, ks, vs))
+        g4 = fd.flash_decode_cuda(qd, ksd, vsd, nv)
+        _assert_close(g4, fd.flash_decode_plain(qd, ksd, vsd, nv), tol,
+                      f"flash_decode {dt} at 32 x 128")
+        g5 = fd.flash_decode_paged_cuda(qd, kd, vd, table, nv)
+        _assert_close(g5, fd.flash_decode_paged_plain(qd, kd, vd, table, nv),
+                      tol, f"flash_decode_paged {dt} at 32 x 128")
+        check(torch.equal(g4, g5), f"flash_decode_paged {dt} at 32 x 128: "
+              f"not bitwise equal to flash_decode on the gathered slab")
+    log("fused phase: K6/K7 == plain (a16, a8; bf16, f32; pos 0, 576, 640, "
+        "647), K7 == K6 bitwise on the gathered slab, K7 on a corner view, "
+        "K6 at 32 x 80, K4/K5 at 32 x 128")
+
+    # timing: input sets (weights + cache or arena) rotated through > 256 MB
+    deq = wsets[False][1]
+    cache_bytes = 2 * B * W * nkv * dh * 2
+    w_bytes = sum(w.numel() * w.element_size() for w in wsets[False][0])
+    n_copy = max(1, min(8, math.ceil(ROTATE_BYTES / (w_bytes + cache_bytes))))
+    wcopy = {a8: [[w.clone() for w in wsets[a8][0]] for _ in range(n_copy)]
+             for a8 in (False, True)}
+    caches = [(ks.to(torch.bfloat16), vs.to(torch.bfloat16),
+               torch.stack([kb, vb])) for _ in range(n_copy)]
+    deqs = [[w.clone() for w in deq] for _ in range(n_copy)]
+    cos, sin = ops._rope_rows(nv, dh, 1e4, dev)
+    half = dh // 2
+
+    def rope(t):                                # (..., dh), bf16
+        t1, t2 = t[..., :half].float(), t[..., half:].float()
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos],
+                         -1).to(t.dtype)
+
+    def composition(i, k, v):
+        """The same function from library calls: bf16 matmuls on the
+        dequantized weights, rope, the cache write at slot nv, SDPA over
+        the nv + 1 valid slots, the output matmul."""
+        wq, wk, wv, wo = deqs[i]
+        qh = rope((xb @ wq).reshape(B, nh, dh))
+        k[:, nv] = rope((xb @ wk).reshape(B, nkv, dh))
+        v[:, nv] = (xb @ wv).reshape(B, nkv, dh)
+        att = F.scaled_dot_product_attention(
+            qh[:, :, None], k[:, :nv + 1].transpose(1, 2),
+            v[:, :nv + 1].transpose(1, 2))
+        return att.reshape(B, nh * dh) @ wo
+
+    def lib6(i):
+        return composition(i, caches[i][0], caches[i][1])
+
+    def lib7(i):
+        g = caches[i][2][:, tl].reshape(2, B, W, nkv, dh)      # one gather
+        return composition(i, g[0], g[1])
+
+    def run6(i, a8=False):
+        return fd.flash_decode_fused_cuda(
+            xb, *wcopy[a8][i], caches[i][0], caches[i][1], nv, -1, cos, sin,
+            True, a8)
+
+    def run7(i, a8=False):
+        return fd.flash_decode_fused_paged_cuda(
+            xb, *wcopy[a8][i], caches[i][2][0], caches[i][2][1], table, nv,
+            -1, cos, sin, True, a8)
+
+    def plain6(i):
+        return fd.flash_decode_fused_plain(
+            xb, *wcopy[False][i], caches[i][0], caches[i][1], nv, -1, cos,
+            sin)
+
+    def plain7(i):
+        return fd.flash_decode_fused_paged_plain(
+            xb, *wcopy[False][i], caches[i][2][0], caches[i][2][1], table,
+            nv, -1, cos, sin)
+
+    # the composition computes the same function (on copies of the cache)
+    ref = plain6(0)[0]
+    for name, lib in (
+            ("K6", lambda: composition(0, caches[0][0].clone(),
+                                       caches[0][1].clone())),
+            ("K7", lambda: lib7(0))):
+        rel = _rel_err(lib(), ref)
+        check(rel < LIBRARY_REL, f"{name} library composition disagrees "
+              f"with the plain version: relative error {rel:.4g}")
+    n_bytes = (2 * B * D + w_bytes + 2 * B * nv * nkv * dh * 2
+               + 2 * B * D + 2 * 2 * B * nkv * dh)
+    n_ops = 2.0 * B * D * (2 * nh * dh + 2 * nkv * dh) \
+        + 4.0 * B * nh * (nv + 1) * dh
+    out = {}
+    for name, run, plain, lib, extra in (
+            ("K6", run6, plain6, lib6, 0),
+            ("K7", run7, plain7, lib7, 4 * B * n_b)):
+        b, by = bound_ms(n_bytes + extra, n_ops, "int8")
+        out[name] = dict(
+            ms=device_ms(run, n_copy),
+            a8_ms=device_ms(lambda i: run(i, True), n_copy),
+            plain_ms=device_ms(plain, n_copy),
+            library_ms=device_ms(lib, n_copy), bound_ms=b, bound_by=by,
+            bound_bytes=n_bytes + extra, arena_pages=P,
+            library_call=(
+                "torch.matmul (bf16, dequantized q/k/v weights) + rope + "
+                "cache write + torch.nn.functional.scaled_dot_product_"
+                "attention + torch.matmul (wo), timed together"
+                + ("" if name == "K6" else ", after a page gather "
+                   "kv[:, table]")))
+    tol = (f"k1, v1: bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}, "
+           f"f32 rtol=atol={F32_TOL['rtol']}; o: rtol as k1, atol bf16 "
+           f"2^-6 max|o|, f32 1e-4, a8 plus two int8 steps of the "
+           f"attention row (fused_tolerances)")
+    return {name: (errs[name][0], tol + f" (max f32 err {errs[name][1]:.3g})"
+                   + ("; bitwise == flash_decode_fused on the gathered slab "
+                      "(f32 and bf16, a16 and a8); "
+                      f"{TAIL7}-tail corner read in place"
+                      if name == "K7" else "; a16 and a8, pos 0/576/640/647"),
+                   out[name]) for name in ("K6", "K7")}
+
+
 KERNELS = [
     # (name, counter, source, replaces, the main path whose run its
     # "launches" reports)
@@ -415,13 +714,31 @@ KERNELS = [
     ("flash_decode_paged", "flash_decode_paged",
      "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:403", "continuous_w8a16"),
+    ("flash_decode_fused", "flash_decode_fused",
+     "src/repro_torch/csrc/flash_decode_fused.cu",
+     "src/repro/kernels/flash_decode.py:182", "bloom7b1_dftsp_w8a16"),
+    ("flash_decode_fused_paged", "flash_decode_fused_paged",
+     "src/repro_torch/csrc/flash_decode_fused.cu",
+     "src/repro/kernels/flash_decode.py:260", "bloom7b1_continuous_w8a16"),
 ]
 
 
 def kernel_phase():
     results = {}
+    fused = fused_phase()
+    torch.cuda.empty_cache()
     for name, counter, *_ in KERNELS:
-        if counter == "flash_decode":
+        if counter in ("flash_decode_fused", "flash_decode_fused_paged"):
+            err, tol, t = fused["K6" if counter == "flash_decode_fused"
+                                else "K7"]
+            shape = (f"one BLOOM-7B1 layer's attention: B={ATTN7['B']} "
+                     f"D={ATTN7['D']} nh=nkv={ATTN7['nh']} dh={ATTN7['dh']} "
+                     f"W={ATTN7['W']} n_valid={ATTN7['n_valid']}, bf16, int8 "
+                     f"weights, a16 (a8_ms: W8A8)"
+                     + ("" if counter == "flash_decode_fused" else
+                        f", {ATTN7['W'] // PAGED['bt']} blocks of "
+                        f"{PAGED['bt']} slots over {t['arena_pages']} pages"))
+        elif counter == "flash_decode":
             err, tol, t = flash_decode_phase()
             shape = (f"B={ATTN['B']} W={ATTN['W']} n_valid={ATTN['n_valid']} "
                      f"nh=nkv={ATTN['nh']} dh={ATTN['dh']} bf16, one call "
@@ -447,7 +764,8 @@ def kernel_phase():
             + (f"; prefill ms={t['prefill_ms']:.3f} bound_ms="
                f"{t['prefill_bound_ms']:.3f} ({t['prefill_bound_by']}) "
                f"plain_ms={t['prefill_plain_ms']:.3f} library_ms="
-               f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else ""))
+               f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else "")
+            + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else ""))
     return results
 
 
@@ -456,16 +774,20 @@ def kernel_phase():
 # ---------------------------------------------------------------------------
 
 
-def small_reference_phase():
-    """Reduced float32 BLOOM: card (kernels) == CPU (plain versions)."""
+def small_reference_phase(arch="bloom-3b", n_heads=4,
+                          bits_list=(0, 8, (8, 8), 4), paged_bits=(8,),
+                          tier="flash"):
+    """Reduced float32 BLOOM: card (kernels) == CPU (plain versions); the
+    kernels of ``tier`` launched for the int8 precisions."""
     from repro_torch import bridge
     from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_arena import KVArena
     import numpy as np
-    cfg = get_arch("bloom-3b").scaled(n_layers=2, d_model=256, n_heads=4,
-                                      n_kv_heads=4, d_ff=512, vocab=2048,
-                                      dtype="float32")
+    cfg = get_arch(arch).scaled(n_layers=2, d_model=256, n_heads=n_heads,
+                                n_kv_heads=n_heads, d_ff=512, vocab=2048,
+                                dtype="float32")
     kw = dict(batch_capacity=4, s_max=32, n_max=16, quant_bits=8,
               use_kernel=True)
     cpu = ServingEngine(cfg, device="cpu", seed=4, **kw)
@@ -475,23 +797,38 @@ def small_reference_phase():
     prompts = [rng.integers(1, cfg.vocab, size=n).tolist()
                for n in (7, 32, 19, 3)]
     caps = [16, 9, 16, 4]
-    for bits in (0, 8, (8, 8), 4):
+    slab, paged = ("flash_decode", "flash_decode_paged") if tier == "flash" \
+        else ("flash_decode_fused", "flash_decode_fused_paged")
+    for bits in bits_list:
+        check(gpu.decode_tier(bits) == (tier if bits in (8, (8, 8))
+                                        else "flash"),
+              f"{arch} at bits={bits}: decode tier {gpu.decode_tier(bits)}")
+        ops.reset_launch_counts()
         a = gpu.generate(prompts, caps, quant_bits=bits)
+        if bits in (8, (8, 8)):
+            check(ops.launch_counts()[slab] > 0,
+                  f"reduced {arch} at bits={bits}: {slab} never launched")
         b = cpu.generate(prompts, caps, quant_bits=bits)
         check(np.array_equal(a.tokens, b.tokens)
               and np.array_equal(a.lengths, b.lengths),
-              f"reduced float32 BLOOM at bits={bits}: card tokens "
+              f"reduced float32 {arch} at bits={bits}: card tokens "
               f"{a.tokens.tolist()} != CPU tokens {b.tokens.tolist()}")
-    a = gpu.generate_via_chunks(prompts, caps, k=5, quant_bits=8,
-                                arena=KVArena.for_engines(gpu, 8))
-    b = cpu.generate_via_chunks(prompts, caps, k=5, quant_bits=8,
-                                arena=KVArena.for_engines(cpu, 8))
-    check(np.array_equal(a.tokens, b.tokens)
-          and np.array_equal(a.lengths, b.lengths),
-          f"reduced float32 BLOOM, paged: card tokens {a.tokens.tolist()} "
-          f"!= CPU tokens {b.tokens.tolist()}")
-    log("small reference: reduced float32 BLOOM, card == CPU tokens at "
-        "bits 0, 8, (8, 8), 4, and paged (8-slot pages, k=5) at bits 8")
+    for bits in paged_bits:
+        ops.reset_launch_counts()
+        a = gpu.generate_via_chunks(prompts, caps, k=5, quant_bits=bits,
+                                    arena=KVArena.for_engines(gpu, 8))
+        check(ops.launch_counts()[paged] > 0,
+              f"reduced {arch} paged at bits={bits}: {paged} never launched")
+        b = cpu.generate_via_chunks(prompts, caps, k=5, quant_bits=bits,
+                                    arena=KVArena.for_engines(cpu, 8))
+        check(np.array_equal(a.tokens, b.tokens)
+              and np.array_equal(a.lengths, b.lengths),
+              f"reduced float32 {arch}, paged at bits={bits}: card tokens "
+              f"{a.tokens.tolist()} != CPU tokens {b.tokens.tolist()}")
+    log(f"small reference: reduced float32 {arch} ({n_heads} heads of "
+        f"{cfg.d_head}), card == CPU tokens at bits {list(bits_list)} "
+        f"({tier} tier at 8 and (8, 8)), and paged (8-slot pages, k=5) at "
+        f"bits {list(paged_bits)}")
 
 
 def _timed(fn):
@@ -515,53 +852,61 @@ MAIN_PATHS = [
 ]
 
 
-def serve_paths(engines, rate: float, n_epochs: int):
-    """Each main path under ``EpochRuntime`` + ``EngineExecutor``, with the
+def epoch_path(engine, label, method, spec, launched, idle, rate: float,
+               n_epochs: int):
+    """One main path under ``EpochRuntime`` + ``EngineExecutor``, with the
     launch counters zeroed just before it and read just after."""
     from repro_torch.core.environment import paper_env
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import ops
     from repro_torch.serving.runtime import EngineExecutor, EpochRuntime
-    runs = {}
-    for label, method, spec, bits, launched, idle in MAIN_PATHS:
-        runtime = EpochRuntime(paper_env("bloom-3b", method), get_policy(spec),
-                               EngineExecutor(engines[bits], seed=0))
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        m = runtime.run(rate=rate, n_epochs=n_epochs, seed=0,
-                        warmup_epochs=0)
-        torch.cuda.synchronize()
-        run_ms = (time.perf_counter() - t0) * 1e3
-        counts = ops.launch_counts()
-        log(f"slice: {label}: {spec} deployed at {method} on a W{bits} "
-            f"engine, {n_epochs} epochs at rate {rate}: served={m.served} "
-            f"dropped={m.dropped} truncated={m.truncated} "
-            f"tokens={m.generated_tokens} batches={m.batch_sizes} "
-            f"methods={m.served_by_method} in {run_ms:.0f} ms; "
-            f"launches {counts}")
-        check(m.served > 0 and m.generated_tokens > 0,
-              f"{label} served nothing: {m.served} requests, "
-              f"{m.generated_tokens} tokens")
-        for c in launched:
-            check(counts[c] > 0, f"{label}: {c} was never launched "
-                  f"(launches {counts})")
-        for c in idle:
-            check(counts[c] == 0, f"{label}: {c} launched {counts[c]} "
-                  f"times on a path that does not serve it")
-        runs[label] = dict(served=m.served, dropped=m.dropped,
-                           truncated=m.truncated, tokens=m.generated_tokens,
-                           batches=m.batch_sizes,
-                           methods=m.served_by_method, run_ms=run_ms,
-                           launches=counts)
-    return runs
+    runtime = EpochRuntime(paper_env(engine.cfg.arch_id, method),
+                           get_policy(spec), EngineExecutor(engine, seed=0))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = runtime.run(rate=rate, n_epochs=n_epochs, seed=0, warmup_epochs=0)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    log(f"slice: {label}: {spec} deployed at {method} on a "
+        f"{engine.cfg.arch_id} W{engine.default_bits} engine, {n_epochs} "
+        f"epochs at rate {rate}: served={m.served} dropped={m.dropped} "
+        f"truncated={m.truncated} tokens={m.generated_tokens} "
+        f"batches={m.batch_sizes} methods={m.served_by_method} in "
+        f"{run_ms:.0f} ms; launches {counts}")
+    check(m.served > 0 and m.generated_tokens > 0,
+          f"{label} served nothing: {m.served} requests, "
+          f"{m.generated_tokens} tokens")
+    for c in launched:
+        check(counts[c] > 0, f"{label}: {c} was never launched "
+              f"(launches {counts})")
+    for c in idle:
+        check(counts[c] == 0, f"{label}: {c} launched {counts[c]} "
+              f"times on a path that does not serve it")
+    return dict(served=m.served, dropped=m.dropped, truncated=m.truncated,
+                tokens=m.generated_tokens, batches=m.batch_sizes,
+                methods=m.served_by_method, run_ms=run_ms, launches=counts)
 
 
-def continuous_phase(engine, rate: float = 10.0, n_epochs: int = 3,
-                     k: int = 16):
-    """``dftsp`` through ``ContinuousRuntime`` + ``EngineContinuousExecutor``
-    over a paged arena of half the slab's pages, counted on its own."""
+def serve_paths(engines, rate: float, n_epochs: int):
+    """Each of BLOOM-3B's main paths (``MAIN_PATHS``), counted on its own."""
+    return {label: epoch_path(engines[bits], label, method, spec, launched,
+                              idle, rate, n_epochs)
+            for label, method, spec, bits, launched, idle in MAIN_PATHS}
+
+
+def continuous_phase(engine, spec: str = "dftsp",
+                     launched=("flash_decode_paged", "w8a16"),
+                     idle=("flash_decode",), rate: float = 10.0,
+                     n_epochs: int = 3, k: int = 16, label="continuous",
+                     policy=None):
+    """``spec`` through ``ContinuousRuntime`` + ``EngineContinuousExecutor``
+    over a paged arena of half the slab's pages, counted on its own: the
+    counters in ``launched`` must move, those in ``idle`` must not (no
+    slab decode kernel: every cohort is arena-backed)."""
     from repro_torch.core.environment import paper_env
+    from repro_torch.core.policy import get_policy
     from repro_torch.kernels import ops
     from repro_torch.serving.kv_arena import KVArena
     from repro_torch.serving.runtime import (ContinuousRuntime,
@@ -569,7 +914,7 @@ def continuous_phase(engine, rate: float = 10.0, n_epochs: int = 3,
     arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"],
                                 shrink=PAGED["shrink"])
     runtime = ContinuousRuntime(
-        paper_env("bloom-3b", "W8A16"), "dftsp",
+        paper_env(engine.cfg.arch_id, "W8A16"), policy or get_policy(spec),
         EngineContinuousExecutor(engine, seed=0, arena=arena), k=k)
     topups0 = engine.lease_topups
     torch.cuda.synchronize()
@@ -579,63 +924,71 @@ def continuous_phase(engine, rate: float = 10.0, n_epochs: int = 3,
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
-    log(f"continuous: dftsp over a {arena.n_pages}-page arena "
-        f"({PAGED['bt']}-slot pages, {PAGED['shrink']}x the slab), k={k}, "
-        f"{n_epochs} epochs at rate {rate}: served={m.served} "
+    log(f"{label}: {spec} on {engine.cfg.arch_id} over a {arena.n_pages}-"
+        f"page arena ({PAGED['bt']}-slot pages, {PAGED['shrink']}x the "
+        f"slab), k={k}, {n_epochs} epochs at rate {rate}: served={m.served} "
         f"dropped={m.dropped} shed={m.shed} tokens={m.generated_tokens} "
         f"mid-epoch admissions={m.admitted_mid_epoch} top-up pages="
         f"{m.kv_topup_pages} alloc_peak={arena.alloc_peak} mean block "
         f"occupancy={m.mean_block_occupancy:.4f} methods="
-        f"{m.served_by_method} in {run_ms:.0f} ms; launches {counts}")
+        f"{m.served_by_method} cohort methods by epoch="
+        f"{[t.quants for t in m.traces]} in {run_ms:.0f} ms; launches "
+        f"{counts}")
     check(m.served > 0 and m.generated_tokens > 0,
-          f"continuous run served nothing: {m.served} requests, "
+          f"{label} served nothing: {m.served} requests, "
           f"{m.generated_tokens} tokens")
-    for c in ("flash_decode_paged", "w8a16"):
-        check(counts[c] > 0, f"continuous: {c} was never launched "
+    for c in launched:
+        check(counts[c] > 0, f"{label}: {c} was never launched "
               f"(launches {counts})")
-    check(counts["flash_decode"] == 0,
-          f"continuous: flash_decode launched {counts['flash_decode']} times "
-          f"though every cohort is arena-backed")
+    for c in idle:
+        check(counts[c] == 0, f"{label}: {c} launched {counts[c]} times "
+              f"though every cohort is arena-backed")
     check(m.arrived == m.served + m.dropped + m.shed
           + len(m.final_queue_rids) + len(m.in_flight_rids),
-          f"continuous: requests not conserved: arrived {m.arrived}, served "
+          f"{label}: requests not conserved: arrived {m.arrived}, served "
           f"{m.served}, dropped {m.dropped}, shed {m.shed}, queued "
           f"{len(m.final_queue_rids)}, in flight {len(m.in_flight_rids)}")
     check(arena.free_pages == arena.total_pages,
-          f"continuous: {arena.total_pages - arena.free_pages} pages still "
+          f"{label}: {arena.total_pages - arena.free_pages} pages still "
           f"leased after the drain")
     check(m.kv_topup_pages == engine.lease_topups - topups0,
-          "continuous: top-up pages disagree with the engine's count")
+          f"{label}: top-up pages disagree with the engine's count")
     return dict(served=m.served, dropped=m.dropped, shed=m.shed,
                 tokens=m.generated_tokens,
                 admitted_mid_epoch=m.admitted_mid_epoch,
                 topup_pages=m.kv_topup_pages, alloc_peak=arena.alloc_peak,
                 arena_pages=arena.n_pages,
                 mean_block_occupancy=m.mean_block_occupancy,
-                methods=m.served_by_method, run_ms=run_ms, launches=counts)
+                methods=m.served_by_method,
+                cohort_methods=[t.quants for t in m.traces], run_ms=run_ms,
+                launches=counts)
 
 
-def paged_equivalence_phase(engine, prompts, caps, k: int = 16):
-    """Chunked decode over the arena (K5), over the slab (K4) and
-    ``generate`` give bitwise equal tokens at W8A16; so do a paged and a
-    slab cohort refilled at step 40.  Also times one paged decode step,
-    eager and as a CUDA-graph replay."""
+def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
+                            step_timing: bool = True):
+    """Chunked decode over the arena, over the slab and ``generate`` give
+    bitwise equal tokens at ``bits``; so do a paged and a slab cohort
+    refilled at step 40.  Also times one paged decode step, eager and as a
+    CUDA-graph replay."""
     import numpy as np
     from repro_torch.serving.kv_arena import ZERO_PAGE, KVArena
     arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"])
+    what = f"{engine.cfg.arch_id} at bits={bits}"
     (g, s, p), ms = zip(*(_timed(fn) for fn in (
-        lambda: engine.generate(prompts, caps),
-        lambda: engine.generate_via_chunks(prompts, caps, k=k),
+        lambda: engine.generate(prompts, caps, quant_bits=bits),
         lambda: engine.generate_via_chunks(prompts, caps, k=k,
-                                           arena=arena))))
+                                           quant_bits=bits),
+        lambda: engine.generate_via_chunks(prompts, caps, k=k,
+                                           quant_bits=bits, arena=arena))))
     for name, r in (("slab", s), ("paged", p)):
         check(np.array_equal(r.tokens, g.tokens)
               and np.array_equal(r.lengths, g.lengths),
-              f"generate_via_chunks ({name}, k={k}) != generate at W8A16")
+              f"generate_via_chunks ({name}, k={k}) != generate, {what}")
     half = len(prompts) // 2
 
     def refilled(arena):
-        st = engine.start_chunked(prompts[:half], caps[:half], arena=arena)
+        st = engine.start_chunked(prompts[:half], caps[:half],
+                                  quant_bits=bits, arena=arena)
         st = engine.generate_chunked(st, 40)
         st = engine.refill_chunked(st, list(range(half, len(prompts))),
                                    prompts[half:], caps[half:], t_now=40)
@@ -650,22 +1003,27 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16):
 
     (so, sl), (po, pl) = refilled(None), refilled(arena)
     check(np.array_equal(so, po) and np.array_equal(sl, pl),
-          "paged cohort refilled at step 40 != slab cohort refilled at 40")
+          f"paged cohort refilled at step 40 != slab cohort refilled at 40, "
+          f"{what}")
     check(arena.free_pages == arena.total_pages,
           "paged equivalence: pages still leased")
     check(all(not leaf[:, ZERO_PAGE].any()
               for leaf in arena.buffers().values()),
           "the zero page was written")
-    log(f"paged == slab == generate at W8A16 ({len(prompts)} rows, k={k}): "
+    log(f"paged == slab == generate, {what} ({len(prompts)} rows, k={k}): "
         f"generate {ms[0]:.0f} ms, chunked slab {ms[1]:.0f} ms, chunked "
         f"paged {ms[2]:.0f} ms; refilled at t=40 (rows {half}..): paged == "
         f"slab, lengths {pl.tolist()}")
+    out = dict(generate_ms=ms[0], chunked_slab_ms=ms[1],
+               chunked_paged_ms=ms[2])
+    if not step_timing:
+        return out
 
     # one paged decode step of a full cohort at the mid position, eager and
     # with no host work between its kernels
-    params = engine.params_for(8)
+    params = engine.params_for(bits)
     st = engine.start_chunked(prompts, [engine.n_max] * len(prompts),
-                              arena=arena)
+                              quant_bits=bits, arena=arena)
     engine._extend_leases(st, engine.n_max)
     pages, table = arena.buffers(), st.table.device
     pos = engine.s_max + engine.n_max // 2
@@ -683,19 +1041,16 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16):
     step_ms /= 8
     dev_ms = device_ms(step)
     engine.release_all(st)
-    log(f"paged decode step (B={len(prompts)}, pos={pos}): {step_ms:.2f} ms "
-        f"eager, {dev_ms:.2f} ms of device work (idle share "
+    log(f"paged decode step, {what} (B={len(prompts)}, pos={pos}): "
+        f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
         f"{1.0 - dev_ms / step_ms:.3f})")
-    return dict(generate_ms=ms[0], chunked_slab_ms=ms[1],
-                chunked_paged_ms=ms[2], paged_step_ms=step_ms,
-                paged_step_device_ms=dev_ms,
+    return dict(out, paged_step_ms=step_ms, paged_step_device_ms=dev_ms,
                 paged_step_idle_share=1.0 - dev_ms / step_ms)
 
 
 def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                 n_max=N_MAX, rate: float = 10.0, n_epochs: int = 4):
     """Serve ``cfg`` through the main paths; returns what it measured."""
-    import numpy as np
     from repro_torch.models import transformer
     from repro_torch.quant import ptq
     from repro_torch.serving.engine import ServingEngine
@@ -711,23 +1066,9 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     runs = serve_paths({8: engine, 4: engine4}, rate, n_epochs)
 
     # generate == generate_reference at each quantized precision
-    rng = np.random.default_rng(0)
-    lens = [s_max] + rng.integers(1, s_max + 1, size=batch - 1).tolist()
-    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in lens]
-    caps = [n_max] + rng.integers(1, n_max + 1, size=batch - 1).tolist()
+    prompts, caps = _prompts(cfg, batch, s_max, n_max)
     for bits in (8, (8, 8), 4):
-        a = engine.generate(prompts, caps, quant_bits=bits)
-        b = engine.generate_reference(prompts, caps, quant_bits=bits)
-        check(a.tokens.shape == (batch, n_max)
-              and ((a.tokens >= 0) & (a.tokens < cfg.vocab)).all()
-              and (a.lengths >= 1).all()
-              and (a.lengths <= np.minimum(caps, n_max)).all(),
-              f"bits={bits}: generated tokens out of range or lengths "
-              f"{a.lengths} outside [1, caps]")
-        check(np.array_equal(a.tokens, b.tokens)
-              and np.array_equal(a.lengths, b.lengths),
-              f"generate != generate_reference on full-width BLOOM-3B at "
-              f"bits={bits}")
+        _check_generate(engine, prompts, caps, bits)
     log(f"slice: generate == generate_reference at W8A16, W8A8 and W4A16 "
         f"({batch} rows, {n_max} tokens)")
 
@@ -784,6 +1125,235 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     return dict(runs=runs, timings=timings, unembed=unembed, paged=paged)
 
 
+def _prompts(cfg, batch, s_max, n_max, seed=0):
+    """A full-length prompt with a full cap, and random others."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = [s_max] + rng.integers(1, s_max + 1, size=batch - 1).tolist()
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in lens]
+    caps = [n_max] + rng.integers(1, n_max + 1, size=batch - 1).tolist()
+    return prompts, caps
+
+
+def _check_generate(engine, prompts, caps, bits):
+    """generate == generate_reference at ``bits``, tokens in range."""
+    import numpy as np
+    B, n_max, vocab = len(prompts), engine.n_max, engine.cfg.vocab
+    a = engine.generate(prompts, caps, quant_bits=bits)
+    b = engine.generate_reference(prompts, caps, quant_bits=bits)
+    check(a.tokens.shape == (B, n_max)
+          and ((a.tokens >= 0) & (a.tokens < vocab)).all()
+          and (a.lengths >= 1).all()
+          and (a.lengths <= np.minimum(caps, n_max)).all(),
+          f"{engine.cfg.arch_id} bits={bits}: generated tokens out of range "
+          f"or lengths {a.lengths} outside [1, caps]")
+    check(np.array_equal(a.tokens, b.tokens)
+          and np.array_equal(a.lengths, b.lengths),
+          f"generate != generate_reference on full-width "
+          f"{engine.cfg.arch_id} at bits={bits}")
+
+
+class _OpCount:
+    """Counts the ATen operations dispatched while active (views included):
+    a host-side count of what an eager step asks of the device, beside the
+    hand-written kernels' own counters (ctypes calls, not dispatched)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def decode_step_timing(engine, prompts, bits, label, unfused=False):
+    """Prefill ms, then one decode step of the full batch: eager ms, device
+    ms (its kernels replayed as one CUDA graph), the idle share, the
+    hand-written kernel calls and the ATen ops it dispatches.  ``unfused``
+    takes the step with the fused gate forced off (K1 projections + rope +
+    K4, the tier the model would take without K6) for comparison."""
+    from repro_torch.kernels import ops
+    params = engine.params_for(bits)
+    host = engine._prepare(prompts, [engine.n_max] * len(prompts), bits)[1]
+    tokens = host[:, :engine.s_max].to(engine.device)
+    gate = ops.fusable_decode
+    if unfused:
+        ops.fusable_decode = lambda p, cfg: False
+    try:
+        engine._prefill(params, tokens)                   # warm
+        (cur, cache), pre_ms = _timed(lambda: engine._prefill(params,
+                                                              tokens))
+
+        def steps(n=8):
+            c = cur
+            for t in range(n):
+                c, _ = engine._decode(params, cache, c, t)
+
+        steps(2)                                          # warm
+        _, step_ms = _timed(steps)
+        step_ms /= 8
+        dev_ms = device_ms(lambda i: engine._decode(params, cache, cur, 0))
+        ops.reset_launch_counts()
+        with _OpCount() as n_ops:
+            engine._decode(params, cache, cur, 0)
+        calls = {k: v for k, v in ops.launch_counts().items() if v}
+    finally:
+        ops.fusable_decode = gate
+    out = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+               decode_device_ms_per_step=dev_ms,
+               decode_idle_share=1.0 - dev_ms / step_ms,
+               kernel_calls_per_step=calls, aten_ops_per_step=n_ops.n)
+    log(f"{engine.cfg.arch_id} {label}: prefill (M="
+        f"{len(prompts) * engine.s_max}) {pre_ms:.1f} ms; decode step "
+        f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
+        f"{1.0 - dev_ms / step_ms:.3f}); per step: kernel calls {calls}, "
+        f"{n_ops.n} ATen ops dispatched")
+    del cache
+    return out
+
+
+MEASURED_SPEC = "dftsp:quant=auto,split=true,calib=measured"
+
+
+def continuous_measured_phase(engine, k: int = 16):
+    """``dftsp:quant=auto,split=true,calib=measured`` through
+    ``ContinuousRuntime`` over the arena: the runtime calibrates on the
+    card at the start of the run (``measure_beta`` + ``attach_alphas`` +
+    ``measured_methods``, then ``measure_swap_cost``) and serves on the
+    measured coefficients.  The measured records are read as the runtime
+    makes them, and the counters snapshotted when calibration ends, so the
+    launches of calibration and of serving are reported apart."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.quantization import METHODS
+    from repro_torch.kernels import ops
+    from repro_torch.quant import calibration
+    seen = {}
+    policy = get_policy(MEASURED_SPEC)
+    measure_beta, install_swap = calibration.measure_beta, \
+        policy.install_swap_costs
+
+    def recording_beta(*args, **kw):
+        seen["t0"] = time.perf_counter()
+        seen["beta"] = measure_beta(*args, **kw)     # alphas attached later
+        return seen["beta"]
+
+    def recording_swap(record):
+        torch.cuda.synchronize()
+        seen["calibration_s"] = time.perf_counter() - seen["t0"]
+        seen["calibration_launches"] = ops.launch_counts()
+        seen["swap"] = record
+        install_swap(record)
+
+    calibration.measure_beta = recording_beta
+    policy.install_swap_costs = recording_swap
+    try:
+        run = continuous_phase(engine, MEASURED_SPEC, launched=(), idle=(),
+                               k=k, label="bloom7b1_continuous_auto_measured",
+                               policy=policy)
+    finally:
+        calibration.measure_beta = measure_beta
+    beta, swap = seen["beta"], seen["swap"]
+    cal = seen["calibration_launches"]
+    serving = {c: run["launches"][c] - cal[c] for c in cal}
+    check(beta["backend"] == swap["backend"] == engine.device.type,
+          f"calibration did not run on the engine's device: "
+          f"{beta['backend']}, {swap['backend']}")
+    check(set(beta["methods"]) == set(METHODS)
+          and all(m["beta"] > 0 for m in beta["methods"].values()),
+          f"measured betas incomplete: {beta['methods']}")
+    check(all(0 < beta["methods"][n]["alpha_w"] < 1 for n in METHODS
+              if METHODS[n].weight_bits < 16), "measured alphas missing")
+    check(len(swap["pairs"]) == 12, f"swap pairs: {sorted(swap['pairs'])}")
+    for c in ("flash_decode_fused", "w8a16", "w8a8", "w4a16",
+              "flash_decode"):
+        check(cal[c] > 0, f"calibration: {c} was never launched ({cal})")
+    check(serving["flash_decode"] == serving["flash_decode_fused"] == 0,
+          f"serving over the arena launched a slab decode kernel: {serving}")
+    int8 = any(q in ("W8A16", "W8A8") for t in run["cohort_methods"]
+               for q in t.values())
+    other = any(q not in ("W8A16", "W8A8") for t in run["cohort_methods"]
+                for q in t.values())
+    check((serving["flash_decode_fused_paged"] > 0) == int8
+          and (serving["flash_decode_paged"] > 0) == other,
+          f"serving launches {serving} do not follow the cohorts' methods "
+          f"{run['cohort_methods']}")
+    snapped = policy._measured
+    log(f"calibration on {beta['arch']} ({beta['backend']}, "
+        f"{seen['calibration_s']:.1f} s): "
+        + "; ".join(
+            f"{n}: beta {m['beta']:.4f} (snapped {snapped[n].beta}) per "
+            f"batch {m['per_batch']} tok/s {m['tok_s']} fp tok/s "
+            f"{m['tok_s_fp']}"
+            + (f" alpha_w {m['alpha_w']:.4f}" if "alpha_w" in m else "")
+            for n, m in beta["methods"].items())
+        + f"; swap pairs (s) "
+        f"{ {p: round(v['swap_s'], 6) for p, v in swap['pairs'].items()} } "
+        f"default_s {swap['default_s']:.6f}; launches in calibration "
+        f"{cal}, in serving {serving}")
+    return dict(run, calibration_s=seen["calibration_s"],
+                calibration_launches=cal, serving_launches=serving,
+                beta_record=beta, swap_record=swap,
+                snapped_betas={n: m.beta for n, m in snapped.items()})
+
+
+def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
+                    n_max=N_MAX, rate: float = 10.0, n_epochs: int = 2):
+    """Full-width BLOOM-7B1 on the fused tier: the epoch path at W8A16
+    (K6), the continuous path at W8A16 over the arena (K7), the continuous
+    path with measured calibration, generate == generate_reference and
+    paged == slab == generate at W8A16 and W8A8, and the decode step."""
+    from repro_torch.serving.engine import ServingEngine
+    kw = dict(batch_capacity=batch, s_max=s_max, n_max=n_max, device=device)
+    engine, init_ms = _timed(lambda: ServingEngine(cfg, quant_bits=8, seed=0,
+                                                   **kw))
+    log(f"slice: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}) built and quantized to W8 in "
+        f"{init_ms:.0f} ms")
+    for bits, tier in ((8, "fused"), ((8, 8), "fused"), (0, "flash"),
+                       (4, "flash")):
+        check(engine.decode_tier(bits) == tier,
+              f"{cfg.arch_id} at bits={bits}: decode tier "
+              f"{engine.decode_tier(bits)}, expected {tier}")
+    slab_decode = ("flash_decode", "flash_decode_paged")
+    runs = {"bloom7b1_dftsp_w8a16": epoch_path(
+        engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
+        ("flash_decode_fused", "w8a16"),
+        slab_decode + ("flash_decode_fused_paged", "w8a8", "w4a16"), rate,
+        n_epochs)}
+    prompts, caps = _prompts(cfg, batch, s_max, n_max)
+    for bits in (8, (8, 8)):
+        _check_generate(engine, prompts, caps, bits)
+    log(f"slice: {cfg.arch_id}: generate == generate_reference at W8A16 and "
+        f"W8A8 ({batch} rows, {n_max} tokens)")
+    runs["bloom7b1_continuous_w8a16"] = continuous_phase(
+        engine, launched=("flash_decode_fused_paged", "w8a16"),
+        idle=slab_decode + ("flash_decode_fused",),
+        label="bloom7b1_continuous_w8a16")
+    runs["bloom7b1_continuous_auto_measured"] = \
+        continuous_measured_phase(engine)
+    paged = {str(bits): paged_equivalence_phase(
+        engine, prompts, caps, bits=bits, step_timing=bits == 8)
+        for bits in (8, (8, 8))}
+    timings = {label: decode_step_timing(engine, prompts, bits, label,
+                                         unfused=unfused)
+               for label, bits, unfused in (
+                   ("W8A16", 8, False), ("W8A16 unfused", 8, True),
+                   ("W8A8", (8, 8), False), ("BF16", 0, False))}
+    return dict(runs=runs, timings=timings, paged=paged)
+
+
 # ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
@@ -820,22 +1390,33 @@ def main() -> int:
     with torch.no_grad():
         kernels = kernel_phase()
         small_reference_phase()
+        small_reference_phase("bloom-7b1", n_heads=2, bits_list=(8, (8, 8)),
+                              paged_bits=(8, (8, 8)), tier="fused")
         from repro_torch.config import get_arch
         cfg = get_arch("bloom-3b")
         check(cfg.d_model == 2560 and cfg.n_layers == 30
               and cfg.vocab == 250880 and cfg.dtype == "bfloat16",
               f"unexpected bloom-3b config {cfg}")
         sl = slice_phase(cfg)
+        torch.cuda.empty_cache()                 # BLOOM-3B's engines are gone
+        cfg7 = get_arch("bloom-7b1")
+        check(cfg7.d_model == 4096 and cfg7.n_layers == 30
+              and cfg7.n_heads == 32 and cfg7.d_head == 128
+              and cfg7.vocab == 250880 and cfg7.dtype == "bfloat16",
+              f"unexpected bloom-7b1 config {cfg7}")
+        sl7 = slice_7b1_phase(cfg7)
     log(f"summary: {json.dumps(sl)}")
+    log(f"summary bloom-7b1: {json.dumps(sl7)}")
 
+    runs = {**sl["runs"], **sl7["runs"]}
     rows = []
     for name, counter, source, replaces, path in KERNELS:
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sl["runs"][path]["launches"][counter],
+            launches=runs[path]["launches"][counter],
             launches_path=path,
             launches_by_path={label: run["launches"][counter]
-                              for label, run in sl["runs"].items()},
+                              for label, run in runs.items()},
             **kernels[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("quant_matmul", "flash_decode")
+SOURCES = ("quant_matmul", "flash_decode", "flash_decode_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,6 +87,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "flash_decode": (P, P, P, P, I, P, I, I, I, I, I, F, I, P),
         "flash_decode_paged": (P, P, P, P, P, I, P, I, I, I, I, I, I, L, L,
                                L, F, I, P),
+        "flash_decode_fused": (P,) * 11 + (P, I, P, I) + (P,) * 6
+        + (I,) * 6 + (F, F) + (I,) * 4 + (P,),
+        "flash_decode_fused_paged": (P,) * 12 + (P, I, P, I) + (P,) * 6
+        + (I,) * 7 + (L, L, L) + (F, F) + (I,) * 4 + (P,),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

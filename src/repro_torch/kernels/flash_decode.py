@@ -15,6 +15,21 @@ q (B, nh, dh) attends over k/v (B, W, nkv, dh); slots >= n_valid (an int
 for every row, or a (B,) int32 tensor) are masked.  n_valid must be >= 1.
 Paged: slot j of row b lives in page ``table[b, j // bt]`` at offset
 ``j % bt`` of k/v pages (P, bt, nkv, dh), W = n_b * bt.
+
+The fused quantized tier (``csrc/flash_decode_fused.cu``) replaces
+``_fused_body`` (K6, ``flash_decode_fused``) and ``_fused_paged_body`` (K7,
+``flash_decode_fused_paged``): one decode-attention step from the hidden
+row x (B, D) and int8 wq/wk/wv/wo with their (1, cols) float32 scales.
+It projects q (G heads), k1 and v1 per KV head (a8: the row quantized to
+int8 in the kernel, int8 x int8 -> int32), rotates q and k1 by the rope
+rows cos/sin (1, dh/2), attends over the PRE-write cache (slots >= n_valid
+and the slot ``evict`` are masked; n_valid may be 0), folds the current
+token in as the last online-softmax step and pushes each head group
+through its wo tile; the per-head partials are summed in head order in
+x's type, as the TPU grid accumulates its output block.  It returns
+(o (B, D), k1, v1 (B, nkv, dh)); the caller writes k1/v1.
+``flash_decode_fused_plain`` / ``flash_decode_fused_paged_plain`` are the
+same functions in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -24,8 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.quant_matmul import a8_accumulate_plain
+from repro_torch.quant.ptq import _INV_INT8_MAX, quantize_rowwise
 
-LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0}
+NEG = -1e30
+
+LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0,
+            "flash_decode_fused": 0, "flash_decode_fused_paged": 0}
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,15 +75,103 @@ def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                              ) -> torch.Tensor:
     """Gather each row's pages into its (B, n_b * bt, nkv, dh) slab and
     attend over it with ``flash_decode_plain``."""
+    return flash_decode_plain(q, gather_pages(k_pages, table),
+                              gather_pages(v_pages, table), n_valid)
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Each row's logical blocks of pages (P, bt, ...) through table
+    (B, n_b), as one contiguous (B, n_b * bt, ...) slab."""
     B, n_b = table.shape
-    bt = k_pages.shape[1]
-    idx = table.long()
+    g = pages[table.long()]                      # (B, n_b, bt, ...)
+    return g.reshape((B, n_b * pages.shape[1]) + tuple(g.shape[3:]))
 
-    def gather(pages):
-        g = pages[idx]                           # (B, n_b, bt, nkv, dh)
-        return g.reshape((B, n_b * bt) + tuple(g.shape[3:]))
 
-    return flash_decode_plain(q, gather(k_pages), gather(v_pages), n_valid)
+def _qproject_plain(xr: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                    a8: bool) -> torch.Tensor:
+    """(..., R, Din) float32 @ dequant(w (..., Din, Dout) int8, s) ->
+    (..., R, Dout) float32, batched over the leading axes.  a16: the weight
+    is dequantized (``w * s``) and then dotted; a8: each row is quantized
+    (absmax * float32(1/127), round half to even, clip), summed exactly in
+    int32 and rescaled once, ``acc * sx * s``."""
+    s = s.reshape(-1).to(torch.float32)
+    if a8:
+        xq, sx = quantize_rowwise(xr)
+        return a8_accumulate_plain(xq, w).to(torch.float32) * sx * s
+    return xr @ (w.to(torch.float32) * s)
+
+
+def _rot_half(t: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    """Split-halves rope on the last axis; cos/sin (1, dh/2)."""
+    t1, t2 = torch.chunk(t, 2, dim=-1)
+    return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1)
+
+
+def _per_row(v: Union[int, torch.Tensor], B: int,
+             device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.reshape(-1).expand(B)
+    return torch.full((B,), int(v), dtype=torch.int32, device=device)
+
+
+def flash_decode_fused_plain(x, wq, sq, wk, sk, wv, sv, wo, so, k_cache,
+                             v_cache, n_valid, evict, cos, sin,
+                             use_rope: bool = True, a8: bool = False):
+    """K6 in plain PyTorch.  x (B, D); wq (D, nh*dh), wk/wv (D, nkv*dh),
+    wo (nh*dh, D) int8 with float32 scales of one value per column; k/v
+    cache (B, W, nkv, dh) PRE-write; n_valid / evict an int or a (B,)
+    tensor (evict -1: no slot is evicted); cos/sin (1, dh/2) float32.
+    Returns (o (B, D), k1, v1 (B, nkv, dh)), all in x's type."""
+    B, D = x.shape
+    W, nkv, dh = k_cache.shape[1:]
+    G = wq.shape[1] // dh // nkv
+    xr = x.to(torch.float32)
+    q = _qproject_plain(xr, wq, sq, a8).reshape(B, nkv, G, dh)
+    k1 = _qproject_plain(xr, wk, sk, a8).reshape(B, nkv, dh)
+    v1 = _qproject_plain(xr, wv, sv, a8).reshape(B, nkv, dh)
+    if use_rope:
+        q = _rot_half(q, cos, sin)
+        k1 = _rot_half(k1, cos, sin)
+    qs = q * float(np.float32(1.0 / dh ** 0.5))
+    # online softmax over the pre-write cache: one block of W slots
+    s = torch.einsum("bkgd,bskd->bkgs", qs, k_cache.to(torch.float32))
+    slot = torch.arange(W, device=x.device)[None, :]
+    valid = (slot < _per_row(n_valid, B, x.device)[:, None]) \
+        & (slot != _per_row(evict, B, x.device)[:, None])
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    # the current token, the last step
+    s_cur = (qs * k1[:, :, None, :]).sum(-1, keepdim=True)
+    m_fin = torch.maximum(m, s_cur)
+    p_cur = torch.exp(s_cur - m_fin)
+    alpha = torch.exp(m - m_fin)
+    l_fin = alpha * l + p_cur
+    acc = acc * alpha + p_cur * v1[:, :, None, :]
+    attn = (acc / torch.clamp(l_fin, min=1e-30)).reshape(B, nkv, G * dh)
+    # each head group through its wo tile (a8: rows of G * dh), summed in
+    # head order in x's type
+    parts = _qproject_plain(attn.transpose(0, 1),
+                            wo.reshape(nkv, G * dh, D), so, a8)
+    o = parts[0].to(x.dtype)
+    for h in range(1, nkv):
+        o = o + parts[h].to(x.dtype)
+    return o, k1.to(x.dtype), v1.to(x.dtype)
+
+
+def flash_decode_fused_paged_plain(x, wq, sq, wk, sk, wv, sv, wo, so,
+                                   k_pages, v_pages, table, n_valid, evict,
+                                   cos, sin, use_rope: bool = True,
+                                   a8: bool = False):
+    """K7 in plain PyTorch: K6 on each row's pages (P, bt, nkv, dh),
+    gathered through table (B, n_b) into the (B, n_b * bt, nkv, dh) slab."""
+    return flash_decode_fused_plain(
+        x, wq, sq, wk, sk, wv, sv, wo, so, gather_pages(k_pages, table),
+        gather_pages(v_pages, table), n_valid, evict, cos, sin, use_rope, a8)
 
 
 def _check_q(q: torch.Tensor) -> None:
@@ -74,16 +182,16 @@ def _check_q(q: torch.Tensor) -> None:
                          f"{tuple(q.shape)} on {q.device}")
 
 
-def _n_valid_args(n_valid: Union[int, torch.Tensor], B: int):
-    """(device pointer or None, scalar) for the kernels' n_valid."""
-    if isinstance(n_valid, torch.Tensor):
-        if not n_valid.is_cuda or n_valid.dtype != torch.int32 \
-                or tuple(n_valid.shape) != (B,) \
-                or not n_valid.is_contiguous():
-            raise ValueError("n_valid: need a contiguous CUDA int32 tensor "
+def _scalar_or_ptr(v: Union[int, torch.Tensor], B: int, name: str):
+    """(device pointer or None, scalar) for a per-row int argument of the
+    kernels (n_valid, evict): an int for every row, or a (B,) tensor."""
+    if isinstance(v, torch.Tensor):
+        if not v.is_cuda or v.dtype != torch.int32 \
+                or tuple(v.shape) != (B,) or not v.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous CUDA int32 tensor "
                              f"of shape ({B},)")
-        return n_valid.data_ptr(), 0
-    return None, int(n_valid)
+        return v.data_ptr(), 0
+    return None, int(v)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,7 +208,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: need a contiguous CUDA {q.dtype} "
                              f"tensor of shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    nv_ptr, nv_scalar = _n_valid_args(n_valid, B)
+    nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
     out = torch.empty_like(q)
     lib = _build.library("flash_decode")
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv_ptr,
@@ -142,7 +250,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          f"tensor, got {table.dtype} {tuple(table.shape)} on "
                          f"{table.device}")
     n_b = table.shape[1]
-    nv_ptr, nv_scalar = _n_valid_args(n_valid, B)
+    nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
     out = torch.empty_like(q)
     lib = _build.library("flash_decode")
     ps, ss, hs = k_pages.stride()[:3]
@@ -155,3 +263,118 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check(rc, "flash_decode_paged")
     LAUNCHES["flash_decode_paged"] += 1
     return out
+
+
+def _fused_args(x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin,
+                n_valid, evict):
+    """Check the fused kernels' common operands; return the pointer and
+    size arguments they share, and the scratch and output tensors."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: dtype {x.dtype}, expected float32 or bfloat16")
+    if not x.is_cuda or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x: need a contiguous CUDA (B, D) tensor, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    B, D = x.shape
+    if dh % 2 or D % 2:
+        raise ValueError(f"d_head={dh} and d_model={D} must be even")
+    nh = wq.shape[-1] // dh
+    if nh % nkv:
+        raise ValueError(f"nh={nh} is not a multiple of nkv={nkv}")
+    for name, w, shape in (("wq", wq, (D, nh * dh)), ("wk", wk, (D, nkv * dh)),
+                           ("wv", wv, (D, nkv * dh)), ("wo", wo, (nh * dh, D))):
+        if not w.is_cuda or w.dtype != torch.int8 or tuple(w.shape) != shape \
+                or not w.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous CUDA int8 tensor of "
+                             f"shape {shape}, got {w.dtype} "
+                             f"{tuple(w.shape)} on {w.device}")
+    for name, s, n in (("sq", sq, nh * dh), ("sk", sk, nkv * dh),
+                       ("sv", sv, nkv * dh), ("so", so, D)):
+        if not s.is_cuda or s.dtype != torch.float32 or s.numel() != n \
+                or not s.is_contiguous():
+            raise ValueError(f"{name}: need {n} contiguous CUDA float32 "
+                             f"scales, got {s.dtype} {tuple(s.shape)}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or t.numel() != dh // 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: need {dh // 2} contiguous CUDA "
+                             f"float32 values, got {tuple(t.shape)}")
+    ws = (wq, wk, wv, wo)
+    vec = 16 if dh % 16 == 0 and D % 16 == 0 \
+        and all(w.data_ptr() % 16 == 0 for w in ws) else 2
+    nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
+    ev_ptr, ev_scalar = _scalar_or_ptr(evict, B, "evict")
+    out = torch.empty_like(x)
+    k1 = torch.empty((B, nkv, dh), dtype=x.dtype, device=x.device)
+    v1 = torch.empty_like(k1)
+    part = torch.empty((B, nkv, D), dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, wq, sq, wk, sk, wv, sv, wo, so)]
+    return (B, D, nh, vec, ptrs, (nv_ptr, nv_scalar, ev_ptr, ev_scalar),
+            (cos.data_ptr(), sin.data_ptr(), out.data_ptr(), k1.data_ptr(),
+             v1.data_ptr(), part.data_ptr()), (out, k1, v1))
+
+
+def flash_decode_fused_cuda(x, wq, sq, wk, sk, wv, sv, wo, so, k_cache,
+                            v_cache, n_valid, evict, cos, sin,
+                            use_rope: bool = True, a8: bool = False):
+    """K6: ``flash_decode_fused_plain``'s function on CUDA tensors (one
+    call launches the fused kernel and the fixed-order head sum)."""
+    nkv, dh = k_cache.shape[2], k_cache.shape[3]
+    B, D, nh, vec, ptrs, ints, outs, res = _fused_args(
+        x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin, n_valid, evict)
+    W = k_cache.shape[1]
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_cuda or t.dtype != x.dtype \
+                or tuple(t.shape) != (B, W, nkv, dh) or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous CUDA {x.dtype} "
+                             f"tensor of shape {(B, W, nkv, dh)}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _build.library("flash_decode_fused")
+    rc = lib.flash_decode_fused(
+        *ptrs, k_cache.data_ptr(), v_cache.data_ptr(), *ints, *outs, B, D, nh,
+        nkv, dh, W, 1.0 / dh ** 0.5, _INV_INT8_MAX, int(use_rope), int(a8),
+        int(x.dtype == torch.bfloat16),
+        vec, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "flash_decode_fused")
+    LAUNCHES["flash_decode_fused"] += 1
+    return res
+
+
+def flash_decode_fused_paged_cuda(x, wq, sq, wk, sk, wv, sv, wo, so,
+                                  k_pages, v_pages, table, n_valid, evict,
+                                  cos, sin, use_rope: bool = True,
+                                  a8: bool = False):
+    """K7: K6 through a block table.  k/v pages (P, bt, nkv, dh) may be
+    strided views (the leading corner of a wider page tail); only their
+    d_head axis must be contiguous, and k and v must share their
+    strides."""
+    if k_pages.dim() != 4:
+        raise ValueError(f"k_pages: need (P, bt, nkv, dh), got "
+                         f"{tuple(k_pages.shape)}")
+    P, bt, nkv, dh = k_pages.shape
+    B, D, nh, vec, ptrs, ints, outs, res = _fused_args(
+        x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin, n_valid, evict)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if not t.is_cuda or t.dtype != x.dtype \
+                or tuple(t.shape) != (P, bt, nkv, dh) or t.stride(3) != 1 \
+                or t.stride() != k_pages.stride():
+            raise ValueError(f"{name}: need a CUDA {x.dtype} tensor of shape "
+                             f"{(P, bt, nkv, dh)} with a contiguous last "
+                             f"axis and k's strides {k_pages.stride()}, got "
+                             f"{t.dtype} {tuple(t.shape)} strides "
+                             f"{t.stride()} on {t.device}")
+    if not table.is_cuda or table.dtype != torch.int32 or table.dim() != 2 \
+            or table.shape[0] != B or not table.is_contiguous():
+        raise ValueError(f"table: need a contiguous CUDA int32 (B={B}, n_b) "
+                         f"tensor, got {table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
+    lib = _build.library("flash_decode_fused")
+    ps, ss, hs = k_pages.stride()[:3]
+    rc = lib.flash_decode_fused_paged(
+        *ptrs, k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+        *ints, *outs, B, D, nh, nkv, dh, table.shape[1], bt, ps, ss, hs,
+        1.0 / dh ** 0.5, _INV_INT8_MAX, int(use_rope), int(a8),
+        int(x.dtype == torch.bfloat16),
+        vec, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "flash_decode_fused_paged")
+    LAUNCHES["flash_decode_fused_paged"] += 1
+    return res

@@ -67,19 +67,39 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def _rope_rows(pos: int, dh: int, theta: float, device):
+    """cos/sin (1, dh/2) float32 rows for decode position ``pos`` (the
+    angle convention of ``models.common.apply_rope``), made once here so
+    that the slab and the paged fused kernels see the same rows."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                          device=device) / dh))
+    ang = freqs * float(pos)
+    return torch.cos(ang).reshape(1, -1), torch.sin(ang).reshape(1, -1)
+
+
 def fusable_decode(p, cfg) -> bool:
-    """Whether a layer's attention can take the fused quantized decode
-    kernel (the JAX package's ``flash_decode_fused``).  Always False in the
-    port so far: that kernel (K6, and K7 for the paged arena) is still to be
-    ported; see ROADMAP.md, Queue 2."""
-    return False
+    """Whether a layer's attention takes the fused quantized decode tier
+    (K6, and K7 over the paged arena): all four projections are int8
+    QTensors (W8A16 or W8A8; int4 stays on the unfused tier), no qk-norm
+    (it sits between projection and rope, which the fused kernel does not
+    model), and ``d_head % 128 == 0``.  The last condition is the JAX
+    package's tier choice on its accelerator, where 128 is the lane width;
+    the port serves each model on the tier the reference serves it on (so
+    BLOOM-3B, d_head 80, keeps the unfused K1 + K4/K5 path).  It is a
+    dispatch rule, not a limit of the kernel, which takes any even d_head;
+    and it does not depend on the device, so the CPU and the card take the
+    same tier."""
+    ws = [p.get("wq"), p.get("wk"), p.get("wv"), p.get("wo")]
+    return (all(isinstance(w, QTensor) and w.bits == 8 for w in ws)
+            and not cfg.qk_norm and cfg.d_head % 128 == 0)
 
 
 def decode_kernel_tier(p, cfg) -> str:
     """Which decode-attention tier a kernel-routed step takes for layer
-    params ``p`` under ``cfg``: ``"fused"`` when ``fusable_decode`` holds,
-    else ``"flash"``.  The int8 KV cache (``kv_bits == 8``, the JAX
-    package's ``"kv8"`` tier) is not ported yet."""
+    params ``p`` under ``cfg``: ``"fused"`` (``flash_decode_fused[_paged]``)
+    when ``fusable_decode`` holds, else ``"flash"``
+    (``flash_decode[_paged]``).  The int8 KV cache (``kv_bits == 8``, the
+    JAX package's ``"kv8"`` tier) is not ported yet."""
     if cfg.kv_bits == 8:
         raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported "
                                   "yet; see ROADMAP.md")
@@ -106,3 +126,64 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         return _fd.flash_decode_paged_cuda(q.contiguous(), k_pages, v_pages,
                                            table, n_valid)
     return _fd.flash_decode_paged_plain(q, k_pages, v_pages, table, n_valid)
+
+
+def _fused_operands(x, wq, wk, wv, wo, W: int, pos: int, dh: int,
+                    rope_theta: float):
+    """The fused kernels' operands from QTensor projections and a host
+    position: the int8 weights and flat scales, n_valid = min(pos, W), the
+    slot the current token will overwrite (pos % W once pos >= W, else -1)
+    and the rope rows."""
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        if not isinstance(w, QTensor) or w.bits != 8:
+            raise ValueError(f"{name}: the fused tier takes int8 QTensors")
+    pos = int(pos)
+    nv = min(pos, W)
+    ev = pos % W if pos >= W else -1
+    cos, sin = _rope_rows(pos, dh, rope_theta, x.device)
+    ws = []
+    for w in (wq, wk, wv, wo):
+        ws += [w.q, w.scale.reshape(-1)]
+    return ws, nv, ev, cos, sin, wq.act_bits == 8
+
+
+def flash_decode_fused(x: torch.Tensor, wq, wk, wv, wo,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       pos: int, rope_theta: float = 1e4,
+                       use_rope: bool = True):
+    """Fused quantized decode attention over a slot cache (K6).
+
+    x (B, D) pre-norm hidden rows; wq/wk/wv/wo int8 QTensors (W8A8 when
+    they carry ``act_bits=8``); caches (B, W, nkv, dh) PRE-write; pos the
+    current position (a host int).  Returns (o (B, D), k1, v1
+    (B, nkv, dh)); the CALLER writes k1/v1 at slot pos % W."""
+    W, dh = cache_k.shape[1], cache_k.shape[3]
+    ws, nv, ev, cos, sin, a8 = _fused_operands(x, wq, wk, wv, wo, W, pos,
+                                               dh, rope_theta)
+    if _on_cuda(x):
+        return _fd.flash_decode_fused_cuda(x.contiguous(), *ws, cache_k,
+                                           cache_v, nv, ev, cos, sin,
+                                           use_rope, a8)
+    return _fd.flash_decode_fused_plain(x, *ws, cache_k, cache_v, nv, ev,
+                                        cos, sin, use_rope, a8)
+
+
+def flash_decode_fused_paged(x: torch.Tensor, wq, wk, wv, wo,
+                             k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             table: torch.Tensor, pos: int,
+                             rope_theta: float = 1e4,
+                             use_rope: bool = True):
+    """``flash_decode_fused`` read through a block table (K7): k/v pages
+    (P, bt, nkv, dh) (possibly the leading-corner view of a wider page
+    tail), table (B, n_b) int32.  Returns (o, k1, v1); the caller writes
+    k1/v1 into page ``table[b, pos // bt]`` at offset ``pos % bt``."""
+    W, dh = table.shape[1] * k_pages.shape[1], k_pages.shape[3]
+    ws, nv, ev, cos, sin, a8 = _fused_operands(x, wq, wk, wv, wo, W, pos,
+                                               dh, rope_theta)
+    if _on_cuda(x):
+        return _fd.flash_decode_fused_paged_cuda(
+            x.contiguous(), *ws, k_pages, v_pages, table, nv, ev, cos, sin,
+            use_rope, a8)
+    return _fd.flash_decode_fused_paged_plain(x, *ws, k_pages, v_pages,
+                                              table, nv, ev, cos, sin,
+                                              use_rope, a8)

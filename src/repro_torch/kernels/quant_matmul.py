@@ -45,9 +45,10 @@ def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def a8_accumulate_plain(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The exact int32 product xq (M,K) int8 @ q (K,N) int8.  Computed in
-    float64, where every partial sum (|acc| < 2^53) is exact, so one
-    expression serves any M and either device."""
+    """The exact int32 product xq (M,K) int8 @ q (K,N) int8 (batched over
+    leading axes, as ``@``).  Computed in float64, where every partial sum
+    (|acc| < 2^53) is exact, so one expression serves any M and either
+    device."""
     return (xq.to(torch.float64) @ q.to(torch.float64)).to(torch.int32)
 
 

@@ -5,10 +5,11 @@ attention (prefill, and decode over a slot cache or a paged arena), FFN.
 Functions take params explicitly, as in the JAX package, with tensors in
 the JAX package's layouts.  Prefill attention is plain matmul/softmax (it
 is plain XLA in the JAX package); decode attention goes through
-``kernels.ops.flash_decode`` / ``flash_decode_paged`` (``use_kernel``, the
-default; switching it off is for CPU tensors only).  Cache writes
-update the cache tensors in place (the JAX package returns new arrays):
-a decode step then costs no cache copy.
+``kernels.ops.flash_decode`` / ``flash_decode_paged``, or, for int8
+projections, the fused ``flash_decode_fused`` / ``flash_decode_fused_paged``
+(``use_kernel``, the default; switching it off is for CPU tensors only).
+Cache writes update the cache tensors in place (the JAX package returns new
+arrays): a decode step then costs no cache copy.
 """
 from __future__ import annotations
 
@@ -228,14 +229,24 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      ) -> torch.Tensor:
     """One-token decode step.  x: (B, 1, D); pos: the current position (a
     host int).  Writes the token into the cache in place; returns the
-    attention output (B, 1, D).  ``use_kernel=False`` takes the plain
-    masked softmax, which serves CPU tensors only: on a CUDA tensor decode
-    attention is the kernel."""
+    attention output (B, 1, D).  With ``use_kernel``, int8 projections that
+    ``kops.fusable_decode`` admits take the fused tier
+    (``flash_decode_fused``), others ``flash_decode``.
+    ``use_kernel=False`` takes the plain masked softmax, which serves CPU
+    tensors only: on a CUDA tensor decode attention is a kernel."""
     if not use_kernel and x.is_cuda:
         raise ValueError("use_kernel=False: the plain decode attention "
                          "runs on the CPU only; CUDA tensors go through "
                          "the flash_decode kernel")
     B = x.shape[0]
+    if use_kernel and kops.fusable_decode(p, cfg):
+        # fused tier (K6): projections, rope, attention over the pre-write
+        # cache plus the current token, and wo in one call; then the write
+        o, k1, v1 = kops.flash_decode_fused(
+            x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], cache_k, cache_v,
+            pos, rope_theta=cfg.rope_theta, use_rope=use_rope)
+        cache_write(cache_k, cache_v, k1[:, None], v1[:, None], pos)
+        return o[:, None]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k1, v1 = qkv_proj(p, cfg, x, positions, use_rope)
     cache_write(cache_k, cache_v, k1, v1, pos)
@@ -276,10 +287,12 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     dead rows' tables point at the trash page, several rows at once, and
     which of their duplicate writes lands is unspecified on CUDA: no live
     row reads that page.  Attention reads the row's logical blocks through
-    ``flash_decode_paged``; ``use_kernel=False`` gathers them into the
-    contiguous (B, n_b * bt, nkv, dh) view and takes the plain masked
-    softmax (CPU tensors only).  The fused kernel tier (K7) is not ported,
-    so there is no fused branch."""
+    ``flash_decode_paged``, or, for int8 projections that
+    ``kops.fusable_decode`` admits, the fused ``flash_decode_fused_paged``
+    over the pre-write pages, which writes the token after;
+    ``use_kernel=False`` gathers them into the contiguous (B, n_b * bt,
+    nkv, dh) view and takes the plain masked softmax (CPU tensors
+    only)."""
     if cfg.kv_bits == 8:
         raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
     if not use_kernel and x.is_cuda:
@@ -292,9 +305,17 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     bt = pk.shape[1]
     n_b = table.shape[1]
     W = n_b * bt
+    page = table[:, pos // bt]                                   # (B,)
+    if use_kernel and kops.fusable_decode(p, cfg):
+        # fused tier (K7) over the pre-write pages, then the write
+        o, k1, v1 = kops.flash_decode_fused_paged(
+            x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], pk[..., :nkv, :dh],
+            pv[..., :nkv, :dh], table, pos, rope_theta=cfg.rope_theta)
+        pk[page, pos % bt, :nkv, :dh] = k1.to(pk.dtype)
+        pv[page, pos % bt, :nkv, :dh] = v1.to(pv.dtype)
+        return o[:, None]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k1, v1 = qkv_proj(p, cfg, x, positions)
-    page = table[:, pos // bt]                                   # (B,)
     pk[page, pos % bt, :nkv, :dh] = k1[:, 0].to(pk.dtype)
     pv[page, pos % bt, :nkv, :dh] = v1[:, 0].to(pv.dtype)
     n_valid = min(pos + 1, W)

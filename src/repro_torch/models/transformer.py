@@ -74,15 +74,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             for _ in range(cfg.n_layers)]
 
 
-def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0):
-    """Run the prompt through the stack; return (last-token logits, cache).
-    ``cache_len`` sets decode cache capacity (0 => prompt length)."""
+def _layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            on_kv=None) -> torch.Tensor:
+    """The embedded ``tokens`` (B, S) through every layer, causal; returns
+    the hidden states before the final norm.  ``on_kv(k, v)`` sees each
+    layer's k/v (B, S, nkv, dh)."""
     _check_family(cfg)
-    x = _table(params)[batch["tokens"]]
+    x = _table(params)[tokens]
     B, S, _ = x.shape
-    W = cache_len or S
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    cache: Cache = []
     for lp in params["layers"]:
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
@@ -91,8 +91,38 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0):
                           lp["attn"]["wo"])
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         x = x + common.ffn_apply(lp["ffn"], cfg, h)
+        if on_kv is not None:
+            on_kv(k, v)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Logits (B, S, Vp) of the whole sequence (causal, no cache)."""
+    x = _layers(cfg, params, batch["tokens"])
+    x = common.apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch):
+    """(mean next-token cross-entropy, {"loss", "aux_loss"}); dense models
+    have no auxiliary loss."""
+    from repro_torch.models.api import cross_entropy
+    loss = cross_entropy(forward(cfg, params, batch), batch["labels"],
+                         cfg.vocab, batch.get("loss_mask"))
+    return loss, {"loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0):
+    """Run the prompt through the stack; return (last-token logits, cache).
+    ``cache_len`` sets decode cache capacity (0 => prompt length)."""
+    W = cache_len or batch["tokens"].shape[1]
+    cache: Cache = []
+
+    def keep(k, v):
         ck, cv = common.prefill_cache_from_kv(k, v, W)
         cache.append({"k": ck, "v": cv})
+
+    x = _layers(cfg, params, batch["tokens"], keep)
     x = common.apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
     return _unembed(cfg, params, x)[:, 0], cache
 

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, get_arch
+from repro_torch.kernels import ops as kops
 from repro_torch.models.api import Model, build_model
 from repro_torch.quant.ptq import quantize_tree
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
@@ -220,6 +221,14 @@ class ServingEngine:
                 p = quantize_tree(self._raw_params, w, act_bits=a)
             self._params_cache[bits] = p
         return self._params_cache[bits]
+
+    def decode_tier(self, bits=None) -> str:
+        """The decode-attention tier ``use_kernel=True`` serving at
+        ``bits`` (engine default when None) routes to: ``"fused"`` (K6/K7)
+        or ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``."""
+        params = self.params_for(self.default_bits if bits is None
+                                 else bits)
+        return kops.decode_kernel_tier(params["layers"][0]["attn"], self.cfg)
 
     # -- public API ----------------------------------------------------------
 

@@ -42,13 +42,6 @@ cohort picks its quantization method through the policy's
 ``select_quant`` (the PR-2 ``quant=auto`` descent on the continuous
 path), served via the engine's multi-precision weight cache and
 recorded in ``EpochTrace.quants``.  See DESIGN.md §2.1/§2.2.
-
-This copy in the PyTorch port differs from the JAX package's in its
-import lines and in one more place: ``ContinuousRuntime._auto_calibrate``
-does not import the JAX package's ``quant.calibration`` (the port has no
-calibration yet, ROADMAP M7); where a policy needs calibration
-(``calib="measured"``, or ``split=True`` with no swap record) it raises
-``NotImplementedError`` naming M7.
 """
 from __future__ import annotations
 
@@ -1344,24 +1337,26 @@ class ContinuousRuntime(EpochRuntime):
         (``attach_alphas``) — and a split policy with no swap record
         gets ``measure_swap_cost``, so ``dftsp:quant=auto,split=true``
         drives the continuous engine path with MEASURED coefficients
-        out of the box instead of raising at the first descent.  In the
-        port both passes wait for its calibration (ROADMAP M7) and raise
-        ``NotImplementedError`` until then."""
+        out of the box instead of raising at the first descent."""
         engines = getattr(self.cexec, "engines", None)
         if not engines:
             return
+        eng = next(iter(engines.values()))
         policy = self.policy
         if getattr(policy, "calib", None) == "measured" \
                 and getattr(policy, "_measured", None) is None:
-            raise NotImplementedError(
-                "calib='measured' needs the port's calibration "
-                "(quant/calibration.py), ROADMAP M7: not ported yet")
+            from repro_torch.quant.calibration import (attach_alphas,
+                                                 measure_beta,
+                                                 measured_methods)
+            record = measure_beta(
+                eng, batches=(1, min(4, eng.batch_capacity)), iters=1,
+                n_tokens=4, prompt_len=4)
+            attach_alphas(record, eng._raw_params)
+            policy.install_measured(measured_methods(record))
         if getattr(policy, "split", False) \
                 and getattr(policy, "_swap_record", None) is None:
-            raise NotImplementedError(
-                "split=True needs a measured swap cost from the port's "
-                "calibration (quant/calibration.py), ROADMAP M7: not "
-                "ported yet")
+            from repro_torch.quant.calibration import measure_swap_cost
+            policy.install_swap_costs(measure_swap_cost(eng, iters=1))
 
     def _try_admit(self, queue: List[Request], trace: EpochTrace,
                    degraded: bool = False) -> List[Request]:

@@ -412,9 +412,26 @@ def test_paged_two_engine_node_counts_match_jax():
 
 @pytest.mark.parametrize("spec", ["dftsp:quant=auto,split=true",
                                   "dftsp:quant=auto,calib=measured"])
-def test_calibrated_policies_raise_until_m7(spec):
+def test_calibrated_policies_run(spec):
+    """A policy that needs calibration calibrates on the engine at the start
+    of the run, with the port's own ``quant.calibration``: a split policy
+    gets a measured swap record, ``calib=measured`` measured methods (with
+    measured weight alphas), and the run serves to its end with every
+    request accounted for."""
     eng = _engine()
     rt = ContinuousRuntime(paper_env("bloom-3b", "W8A16"), spec,
                            EngineContinuousExecutor(eng, seed=0), k=2)
-    with pytest.raises(NotImplementedError, match="M7"):
-        rt.run(rate=4.0, n_epochs=2, seed=0, warmup_epochs=0)
+    m = rt.run(rate=4.0, n_epochs=2, seed=0, warmup_epochs=0)
+    assert m.arrived == m.served + m.dropped + m.shed \
+        + len(m.final_queue_rids) + len(m.in_flight_rids)
+    assert m.served > 0
+    if "split" in spec:
+        rec = rt.policy._swap_record
+        assert rec["backend"] == "cpu" and len(rec["pairs"]) == 12
+        assert rt.policy._measured is None
+    else:
+        measured = rt.policy._measured
+        assert set(measured) == {"W16A16", "W8A16", "W8A8", "W4A16-GPTQ",
+                                 "W4A16-ZQL"}
+        assert 0 < measured["W8A16"].alpha_w < 1
+        assert rt.policy._swap_record is None

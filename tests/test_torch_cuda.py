@@ -11,6 +11,10 @@ held at rtol = atol = 1e-4 (the inputs are O(1) and K <= 10240).  bfloat16
 outputs are rounded from float32 sums on both sides, so they may differ by
 one bfloat16 ulp of the output (rtol 2^-7) plus the float32 summation
 error (atol 1e-4).  W8A8 sums integers exactly and is compared bitwise.
+The fused tier (K6, K7) is held the same way for k1 and v1; its output o
+is a sum of per-head partials rounded head by head, and with a8 of an
+int8 re-quantization of float32 attention values, which ``_fused_tols``
+bounds; K7 must equal K6 bitwise on the same values.
 """
 from __future__ import annotations
 
@@ -222,6 +226,138 @@ def test_plain_decode_attention_is_refused_on_the_card(cuda):
                               use_kernel=False)
 
 
+def _fused_inputs(B, D, G, nkv, dh, act_bits, device, seed=0):
+    """x (B, D) and the operands of K6 after it: the four int8 projections
+    with their flat scales (a list of 8 tensors)."""
+    rng = np.random.default_rng(seed)
+    nh = G * nkv
+    x = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    ws = []
+    for shape in ((D, nh * dh), (D, nkv * dh), (D, nkv * dh), (nh * dh, D)):
+        w = rng.standard_normal(shape).astype(np.float32) / np.sqrt(shape[0])
+        t = tptq.quantize(torch.from_numpy(w), 8, act_bits=act_bits)
+        ws += [t.q.to(device), t.scale.reshape(-1).to(device)]
+    return x.to(device), ws
+
+
+def _fused_slab_and_pages(x, W, nkv, dh, bt, device, tail=None, seed=0):
+    """A pre-write slab k/v (B, W, nkv, dh) and the same values in a
+    shuffled page arena (possibly with a wider tail, returned as the
+    corner view), with its table."""
+    rng = np.random.default_rng(seed)
+    B, n_b = x.shape[0], W // bt
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (B, W, nkv, dh)).astype(np.float32)).to(device) for _ in range(2))
+    P = B * n_b + 2
+    nkv_t, dh_t = tail or (nkv, dh)
+    table = torch.from_numpy((2 + rng.permutation(B * n_b)).reshape(
+        B, n_b).astype(np.int32)).to(device)
+    pages = []
+    for c in (ck, cv):
+        p = torch.zeros((P, bt, nkv_t, dh_t), device=device)
+        p[table.long(), :, :nkv, :dh] = c.reshape(B, n_b, bt, nkv, dh)
+        pages.append(p[..., :nkv, :dh])
+    return ck, cv, pages[0], pages[1], table
+
+
+def _fused_tols(dt, a8, ws, v_cache, want):
+    """(o, k1, v1) tolerances of K6/K7 against their plain versions: k1
+    and v1 are rounded once (the matmul tolerances); o sums per-head
+    partials in x's type head by head (bf16: atol 2^-6 max|o|, an ulp at
+    the output's largest magnitude); with a8 each side quantizes the
+    attention row to int8 from float32 values that differ in their last
+    bits, so two elements may land one step apart, each moving o by at
+    most max|v| / 127 * max|wo|."""
+    flip = 0.0
+    if a8:
+        vmax = max(float(v_cache.abs().max()), float(want[2].abs().max()))
+        flip = 2 * vmax / 127 * float((ws[6].abs().float() * ws[7]).max())
+    if dt == torch.float32:
+        kv = dict(rtol=1e-4, atol=1e-4)
+        return dict(rtol=1e-4, atol=1e-4 + flip), kv, kv
+    o_atol = 2 ** -6 * float(want[0].float().abs().max()) + flip
+    return dict(rtol=2 ** -7, atol=o_atol), BF16_TOL, BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("pos", [0, 37, 64, 71])
+@pytest.mark.parametrize("G,dh", [(1, 128), (2, 128), (1, 80), (2, 32)])
+def test_flash_decode_fused_cuda_vs_plain(cuda, G, dh, pos, act_bits):
+    """K6 and K7 against their plain versions at pos 0 (no valid slot), a
+    partial fill, a full cache and the eviction slot (W = 64), in float32
+    (1e-4) and bfloat16; K7 bitwise equal to K6 on the same values."""
+    x, ws = _fused_inputs(3, 256, G, 2, dh, act_bits, cuda, seed=pos)
+    W = 64
+    ck, cv, kp, vp, table = _fused_slab_and_pages(x, W, 2, dh, 16, cuda)
+    nv, ev = min(pos, W), (pos % W if pos >= W else -1)
+    cos, sin = ops._rope_rows(pos, dh, 1e4, cuda)
+    a8 = act_bits == 8
+    for dt in (torch.float32, torch.bfloat16):
+        xd, ckd, cvd, kpd, vpd = (t.to(dt) for t in (x, ck, cv, kp, vp))
+        got = tfd.flash_decode_fused_cuda(xd, *ws, ckd, cvd, nv, ev, cos,
+                                          sin, True, a8)
+        want = tfd.flash_decode_fused_plain(xd, *ws, ckd, cvd, nv, ev, cos,
+                                            sin, True, a8)
+        for g, w, tol in zip(got, want, _fused_tols(dt, a8, ws, cvd, want)):
+            torch.testing.assert_close(g, w, **tol)
+        paged = tfd.flash_decode_fused_paged_cuda(xd, *ws, kpd, vpd, table,
+                                                  nv, ev, cos, sin, True, a8)
+        for p, g in zip(paged, got):
+            assert torch.equal(p, g)
+
+
+@pytest.mark.cuda
+def test_flash_decode_fused_paged_reads_a_wider_tail_in_place(cuda):
+    x, ws = _fused_inputs(3, 128, 1, 2, 128, 16, cuda)
+    *_, kp, vp, table = _fused_slab_and_pages(x, 64, 2, 128, 16, cuda,
+                                              tail=(4, 160))
+    assert not kp.is_contiguous()
+    cos, sin = ops._rope_rows(40, 128, 1e4, cuda)
+    got = tfd.flash_decode_fused_paged_cuda(x, *ws, kp, vp, table, 40, -1,
+                                            cos, sin)
+    want = tfd.flash_decode_fused_paged_plain(x, *ws, kp, vp, table, 40, -1,
+                                              cos, sin)
+    for g, w, tol in zip(got, want, _fused_tols(torch.float32, False, ws, vp,
+                                                want)):
+        torch.testing.assert_close(g, w, **tol)
+    again = tfd.flash_decode_fused_paged_cuda(
+        x, *ws, kp.contiguous(), vp.contiguous(), table, 40, -1, cos, sin)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_fused_engine_on_the_card(cuda):
+    """Reduced float32 BLOOM-7B1 (d_head 128) on the card takes the fused
+    tier at W8A16 and W8A8: generate == generate_reference, paged ==
+    generate, through K6 and K7."""
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_arena import KVArena
+    cfg = get_arch("bloom-7b1").scaled(n_layers=2, d_model=256, n_heads=2,
+                                       n_kv_heads=2, d_ff=512, vocab=512,
+                                       dtype="float32")
+    eng = ServingEngine(cfg, batch_capacity=3, s_max=16, n_max=12,
+                        quant_bits=8, device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (5, 16, 9)]
+    for bits in (8, (8, 8)):
+        assert eng.decode_tier(bits) == "fused"
+        ops.reset_launch_counts()
+        a = eng.generate(prompts, [12, 4, 7], quant_bits=bits)
+        b = eng.generate_reference(prompts, [12, 4, 7], quant_bits=bits)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        arena = KVArena.for_engines(eng, block_tokens=4)
+        c = eng.generate_via_chunks(prompts, [12, 4, 7], k=5,
+                                    quant_bits=bits, arena=arena)
+        np.testing.assert_array_equal(a.tokens, c.tokens)
+        counts = ops.launch_counts()
+        assert counts["flash_decode_fused"] > 0
+        assert counts["flash_decode_fused_paged"] > 0
+        assert counts["flash_decode"] == counts["flash_decode_paged"] == 0
+
+
 # ---------------------------------------------------------------------------
 # No card needed: the wrappers refuse what the kernels do not take
 # ---------------------------------------------------------------------------
@@ -275,3 +411,18 @@ def test_ops_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_decode_paged(q, pages, pages,
                                torch.zeros((2, 3), dtype=torch.int32), 5)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_flash_decode_fused_wrappers_refuse_cpu_tensors(a8):
+    x, ws = _fused_inputs(2, 64, 1, 2, 32, 8 if a8 else 16, "cpu")
+    ck, cv, kp, vp, table = _fused_slab_and_pages(x, 16, 2, 32, 8, "cpu")
+    cos, sin = ops._rope_rows(3, 32, 1e4, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.flash_decode_fused_cuda(x, *ws, ck, cv, 3, -1, cos, sin, True, a8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.flash_decode_fused_paged_cuda(x, *ws, kp, vp, table, 3, -1, cos,
+                                          sin, True, a8)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_fused_cuda(x.to(torch.float16), *ws, ck, cv, 3, -1,
+                                    cos, sin, True, a8)
