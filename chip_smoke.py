@@ -11,12 +11,14 @@ Phases (any failure exits non-zero and prints no result):
    as ``nvidia-smi`` reports them.
 2. Build: every ``src/repro_torch/csrc/*.cu`` is compiled with ``nvcc`` for
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
-   once).
+   once); what ``-Xptxas -v`` said of the tensor-core kernel is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version and timed beside its bound, its plain version and the library
    call (or composition of calls) that computes the same function.  K1-K5
    at the shapes BLOOM-3B's serving path gives them (decode M = 8 and
-   prefill M = 8 * 512 for the quantized matmuls; B = 8, W = 640, 32 heads
+   prefill M = 8 * 512 for the quantized matmuls, where K1 and K3 run the
+   tensor-core kernel, also at BLOOM-7B1's prefill layer, held bitwise
+   row-invariant in M and deterministic; B = 8, W = 640, 32 heads
    of 80 for decode attention, over a slab and, paged, through a block
    table of 16-slot pages); the paged kernel must be bitwise equal to the
    slab kernel on the gathered slab and read the leading corner of a wider
@@ -38,7 +40,9 @@ Phases (any failure exits non-zero and prints no result):
    method per epoch, W8A8 among them) and ``dftsp`` deployed at W4A16 on a
    4-bit engine.  Each run is counted on its own: the launch counters are
    zeroed just before it and read just after, and each kernel must have
-   launched in the run that reaches its tier.  ``generate`` must equal
+   launched in the run that reaches its tier; a run that served W8A16 or
+   W4A16 must have prefilled on the tensor cores, and a decode-only window
+   must launch no tensor-core kernel.  ``generate`` must equal
    ``generate_reference`` at each quantized precision.
 6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
    + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
@@ -87,6 +91,10 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 # BLOOM-3B serving shapes: one layer's quantized matmuls as (name, K, N)
 LAYER_MATMULS = [("wq", 2560, 2560), ("wk", 2560, 2560), ("wv", 2560, 2560),
                  ("wo", 2560, 2560), ("w1", 2560, 10240), ("w2", 10240, 2560)]
+# BLOOM-7B1's (d_model 4096, d_ff 16384)
+LAYER_MATMULS_7B1 = [("wq", 4096, 4096), ("wk", 4096, 4096),
+                     ("wv", 4096, 4096), ("wo", 4096, 4096),
+                     ("w1", 4096, 16384), ("w2", 16384, 4096)]
 BATCH, S_MAX, N_MAX = 8, 512, 128
 DECODE_M, PREFILL_M = BATCH, BATCH * S_MAX
 # decode attention: the cache holds s_max + n_max slots; a decode step at
@@ -192,8 +200,28 @@ def _assert_close(got, want, tol, what):
                            f"version: {e}") from None
 
 
-def quant_matmul_phase(tier: str):
-    """K1 (w8a16), K2 (w8a8) or K3 (w4a16) at BLOOM-3B's layer shapes."""
+def _tiled_a16(x, q, s, bits):
+    """The CUDA-core tiled kernel on bf16 x at M > 8, called directly: the
+    prefill design the tensor-core kernel replaced, timed beside it."""
+    from repro_torch.kernels import _build
+    M, K = x.shape
+    N = s.numel()
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part = torch.empty((0,), dtype=torch.float32, device=x.device)
+    rc = _build.library("quant_matmul").qmm_a16(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        part.data_ptr(), M, N, K, bits, 1, 1, K,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "qmm_a16")
+    return out
+
+
+def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
+                       phases=(("decode", DECODE_M), ("prefill", PREFILL_M))):
+    """K1 (w8a16), K2 (w8a8) or K3 (w4a16) at one layer's shapes (BLOOM-3B's
+    by default).  At prefill K1 and K3 run the tensor-core kernel: its rows
+    must not depend on M (rows of the M = 4096 call equal the same rows of
+    M = 512 and M = 136 calls) and two calls must be bitwise equal."""
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.quant import ptq
     bits = 4 if tier == "w4a16" else 8
@@ -201,10 +229,10 @@ def quant_matmul_phase(tier: str):
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err, f32_err = 0.0, 0.0
     acc = {phase: dict(ms=0.0, plain=0.0, lib_bf16=0.0, lib_int8=0.0,
-                       nb=0.0, no=0.0)
-           for phase in ("decode", "prefill")}
-    for K, N in sorted({(k, n) for _, k, n in LAYER_MATMULS}):
-        count = sum(1 for _, k, n in LAYER_MATMULS if (k, n) == (K, N))
+                       tiled=0.0, nb=0.0, no=0.0)
+           for phase, _ in phases}
+    for K, N in sorted({(k, n) for _, k, n in layer}):
+        count = sum(1 for _, k, n in layer if (k, n) == (K, N))
         w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
         t = ptq.quantize(w, bits)
         q, s = t.q, t.scale.reshape(-1)
@@ -216,9 +244,10 @@ def quant_matmul_phase(tier: str):
         qts = [c.t().contiguous().t() for c in qs] if tier == "w8a8" else []
         n_dense = max(1, min(64, math.ceil(ROTATE_BYTES / (2 * wd.numel()))))
         wds = [wd.clone() for _ in range(n_dense)]
-        for phase, M in (("decode", DECODE_M), ("prefill", PREFILL_M)):
+        for phase, M in phases:
             x = torch.randn((M, K), generator=gen, device=dev)
             xb = x.to(torch.bfloat16)
+            tc = tier != "w8a8" and M > DECODE_M
             if tier == "w8a8":
                 xq, sx = ptq.quantize_rowwise(xb)
                 got = qm.quant_matmul_a8_cuda(xq, sx, q, s, torch.bfloat16)
@@ -232,10 +261,24 @@ def quant_matmul_phase(tier: str):
                     xq, sx, qs[i], s, torch.bfloat16)
                 n_bytes = M * K + 4 * M + K * N + 4 * N + 2 * M * N
             else:
+                check(qm.route(M, K, N, torch.bfloat16, bits)
+                      == ("tc" if tc else "skinny"),
+                      f"{tier} M={M} K={K} N={N}: route "
+                      f"{qm.route(M, K, N, torch.bfloat16, bits)}")
                 got = qm.quant_matmul_cuda(xb, q, s, bits)
                 want = qm.quant_matmul_plain(xb, q, s, bits)
                 _assert_close(got, want, BF16_TOL,
                               f"{tier} M={M} K={K} N={N} bf16")
+                if tc:
+                    check(torch.equal(got, qm.quant_matmul_cuda(xb, q, s,
+                                                                bits)),
+                          f"{tier} tensor cores M={M} K={K} N={N}: two "
+                          f"calls differ")
+                    for m in (512, 136):
+                        check(torch.equal(got[:m], qm.quant_matmul_cuda(
+                            xb[:m].contiguous(), q, s, bits)),
+                              f"{tier} tensor cores K={K} N={N}: rows of "
+                              f"M={M} != the same rows of M={m}")
                 if phase == "decode":
                     g32 = qm.quant_matmul_cuda(x, q, s, bits)
                     w32 = qm.quant_matmul_plain(x, q, s, bits)
@@ -256,6 +299,11 @@ def quant_matmul_phase(tier: str):
             a["ms"] += count * device_ms(run, n_rot)
             a["plain"] += count * device_ms(plain, n_rot)
             a["lib_bf16"] += count * device_ms(lib, n_rot_dense)
+            if tc:
+                a["tiled"] += count * device_ms(
+                    lambda i: _tiled_a16(xb, qs[i], s, bits))
+            else:
+                a["tiled"] = None
             if tier == "w8a8" and M > 16:
                 # the library's int8 GEMM (it takes M > 16 only) and the
                 # same writeout; its int32 product must be exact too
@@ -285,9 +333,15 @@ def quant_matmul_phase(tier: str):
                           library_call=call, bound_ms=b, bound_by=by)
         if a["lib_int8"] is not None:
             out[phase]["library_bf16_ms"] = a["lib_bf16"]
+        if a["tiled"] is not None:
+            # the same work on the CUDA-core tiled kernel it replaced
+            out[phase]["cuda_core_tiled_ms"] = a["tiled"]
     tol = "bitwise" if tier == "w8a8" else \
         f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; " \
-        f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})"
+        f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})" \
+        + ("" if tier == "w8a8" or "prefill" not in acc else
+           "; prefill on the tensor cores: rows of M=4096 bitwise == those "
+           "of M=512 and M=136, two calls bitwise equal")
     return max_err, tol, out
 
 
@@ -709,6 +763,21 @@ KERNELS = [
      "src/repro/kernels/quant_matmul.py:97", "dftsp_auto_split"),
     ("quant_matmul_w4a16", "w4a16", "src/repro_torch/csrc/quant_matmul.cu",
      "src/repro/kernels/quant_matmul.py:79", "dftsp_w4a16"),
+    # the tensor-core kernel (K1/K3 at prefill), at BLOOM-3B's and
+    # BLOOM-7B1's prefill layer
+    ("quant_matmul_w8a16_tc", "w8a16_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:62", "dftsp_w8a16"),
+    ("quant_matmul_w4a16_tc", "w4a16_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:79", "dftsp_w4a16"),
+    ("quant_matmul_w8a16_tc_bloom7b1", "w8a16_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:62", "bloom7b1_dftsp_w8a16"),
+    ("quant_matmul_w4a16_tc_bloom7b1", "w4a16_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:79",
+     "bloom7b1_continuous_auto_measured"),
     ("flash_decode", "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:40", "dftsp_w8a16"),
     ("flash_decode_paged", "flash_decode_paged",
@@ -723,12 +792,47 @@ KERNELS = [
 ]
 
 
+def ptxas_lines(source: str, kernel: str):
+    """What ``nvcc -Xptxas -v`` said of each instantiation of ``kernel``
+    (registers, barriers, stack, spills), one line each, from the build log
+    of ``csrc/<source>.cu``."""
+    from repro_torch.kernels import _build
+    lines = (_build.build_dir() / f"{source}.log").read_text().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            name = line.split("'")[1]
+            info = []
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "bytes stack frame" in nxt or "Used" in nxt:
+                    info.append(nxt.split(":", 1)[-1].strip())
+            out.append(f"{name}: {'; '.join(info)}")
+    return out
+
+
 def kernel_phase():
-    results = {}
+    results, qmm = {}, {}
     fused = fused_phase()
     torch.cuda.empty_cache()
     for name, counter, *_ in KERNELS:
-        if counter in ("flash_decode_fused", "flash_decode_fused_paged"):
+        if name.endswith("_tc_bloom7b1"):
+            err, tol, both = quant_matmul_phase(
+                counter[:-3], LAYER_MATMULS_7B1, (("prefill", PREFILL_M),))
+            t = both["prefill"]
+            shape = (f"one BLOOM-7B1 prefill layer on the tensor cores: 4 x "
+                     f"(K=N=4096) + (4096->16384) + (16384->4096), "
+                     f"M={PREFILL_M}, bf16 (cuda_core_tiled_ms: the same "
+                     f"work on the CUDA-core tiled kernel)")
+        elif counter.endswith("_tc"):
+            err, tol, both = qmm[counter[:-3]]
+            t = both["prefill"]
+            shape = (f"one BLOOM-3B prefill layer on the tensor cores: 4 x "
+                     f"(K=N=2560) + (2560->10240) + (10240->2560), "
+                     f"M={PREFILL_M}, bf16 (cuda_core_tiled_ms: the same "
+                     f"work on the CUDA-core tiled kernel)")
+        elif counter in ("flash_decode_fused", "flash_decode_fused_paged"):
             err, tol, t = fused["K6" if counter == "flash_decode_fused"
                                 else "K7"]
             shape = (f"one BLOOM-7B1 layer's attention: B={ATTN7['B']} "
@@ -751,12 +855,14 @@ def kernel_phase():
                      f"bf16 over {t['arena_pages']} pages, one call (one "
                      f"layer of a decode step)")
         else:
-            err, tol, both = quant_matmul_phase(counter)
+            err, tol, both = qmm[counter] = quant_matmul_phase(counter)
             t = dict(both["decode"])
             t.update({f"prefill_{k}": v for k, v in both["prefill"].items()})
             shape = (f"one BLOOM-3B layer: 4 x (K=N=2560) + (2560->10240) + "
                      f"(10240->2560), M={DECODE_M} decode "
-                     f"(prefill_*: M={PREFILL_M}), bf16")
+                     f"(prefill_*: M={PREFILL_M}"
+                     + ("" if counter == "w8a8" else ", tensor cores")
+                     + "), bf16")
         results[name] = dict(max_abs_err=err, tolerance=tol, shape=shape, **t)
         log(f"{name}: max_abs_err={err:.4g} ({tol}); ms={t['ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
@@ -765,7 +871,9 @@ def kernel_phase():
                f"{t['prefill_bound_ms']:.3f} ({t['prefill_bound_by']}) "
                f"plain_ms={t['prefill_plain_ms']:.3f} library_ms="
                f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else "")
-            + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else ""))
+            + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else "")
+            + (f"; cuda_core_tiled_ms={t['cuda_core_tiled_ms']:.3f}"
+               if "cuda_core_tiled_ms" in t else ""))
     return results
 
 
@@ -843,13 +951,23 @@ def _timed(fn):
 # spec, the engine's weight bits, counters that must launch in the run,
 # counters that must not).  Each run is counted on its own.
 MAIN_PATHS = [
-    ("dftsp_w8a16", "W8A16", "dftsp", 8, ("w8a16", "flash_decode"),
-     ("w8a8", "w4a16")),
+    ("dftsp_w8a16", "W8A16", "dftsp", 8,
+     ("w8a16", "w8a16_tc", "flash_decode"), ("w8a8", "w4a16", "w4a16_tc")),
     ("dftsp_auto_split", "W8A16", "dftsp:quant=auto,split=true", 8,
      ("w8a8", "flash_decode"), ()),
-    ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4, ("w4a16", "flash_decode"),
-     ("w8a16", "w8a8")),
+    ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4,
+     ("w4a16", "w4a16_tc", "flash_decode"), ("w8a16", "w8a16_tc", "w8a8")),
 ]
+
+
+def check_prefill_on_tensor_cores(counts, label):
+    """A run that served W8A16 or W4A16 prefilled in bf16 at M > 8, which
+    the plan sends to the tensor-core kernel: its count must have moved."""
+    for c in ("w8a16", "w4a16"):
+        if counts[c] > 0:
+            check(counts[c + "_tc"] > 0,
+                  f"{label}: {c} launched {counts[c]} times but never on "
+                  f"the tensor cores (launches {counts})")
 
 
 def epoch_path(engine, label, method, spec, launched, idle, rate: float,
@@ -884,6 +1002,7 @@ def epoch_path(engine, label, method, spec, launched, idle, rate: float,
     for c in idle:
         check(counts[c] == 0, f"{label}: {c} launched {counts[c]} "
               f"times on a path that does not serve it")
+    check_prefill_on_tensor_cores(counts, label)
     return dict(served=m.served, dropped=m.dropped, truncated=m.truncated,
                 tokens=m.generated_tokens, batches=m.batch_sizes,
                 methods=m.served_by_method, run_ms=run_ms, launches=counts)
@@ -943,6 +1062,7 @@ def continuous_phase(engine, spec: str = "dftsp",
     for c in idle:
         check(counts[c] == 0, f"{label}: {c} launched {counts[c]} times "
               f"though every cohort is arena-backed")
+    check_prefill_on_tensor_cores(counts, label)
     check(m.arrived == m.served + m.dropped + m.shed
           + len(m.final_queue_rids) + len(m.in_flight_rids),
           f"{label}: requests not conserved: arrived {m.arrived}, served "
@@ -1051,6 +1171,7 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
 def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                 n_max=N_MAX, rate: float = 10.0, n_epochs: int = 4):
     """Serve ``cfg`` through the main paths; returns what it measured."""
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.quant import ptq
     from repro_torch.serving.engine import ServingEngine
@@ -1092,8 +1213,16 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                 c, _ = engine._decode(params, cache, c, t)
 
         steps(2)                                          # warm
+        ops.reset_launch_counts()
         _, step_ms = _timed(steps)
         step_ms /= 8
+        # a decode-only window: the quantized tier launches, the
+        # tensor-core prefill kernel does not
+        counts = ops.launch_counts()
+        check(counts["w8a16_tc"] == counts["w4a16_tc"] == 0
+              and counts[{"W8A16": "w8a16", "W8A8": "w8a8", "W4A16": "w4a16",
+                          "BF16": "flash_decode"}[label]] > 0,
+              f"slice: {label}: decode-only window launched {counts}")
         # the same step with no host work between its kernels
         dev_ms = device_ms(lambda i: engine._decode(params, cache,
                                                            cur, 0))
@@ -1210,6 +1339,9 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False):
         calls = {k: v for k, v in ops.launch_counts().items() if v}
     finally:
         ops.fusable_decode = gate
+    check(not calls.get("w8a16_tc") and not calls.get("w4a16_tc"),
+          f"{engine.cfg.arch_id} {label}: a decode step launched the "
+          f"tensor-core prefill kernel: {calls}")
     out = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
                decode_device_ms_per_step=dev_ms,
                decode_idle_share=1.0 - dev_ms / step_ms,
@@ -1276,18 +1408,21 @@ def continuous_measured_phase(engine, k: int = 16):
               if METHODS[n].weight_bits < 16), "measured alphas missing")
     check(len(swap["pairs"]) == 12, f"swap pairs: {sorted(swap['pairs'])}")
     for c in ("flash_decode_fused", "w8a16", "w8a8", "w4a16",
-              "flash_decode"):
+              "flash_decode", "w8a16_tc", "w4a16_tc"):
         check(cal[c] > 0, f"calibration: {c} was never launched ({cal})")
+    check_prefill_on_tensor_cores(serving, "measured serving")
     check(serving["flash_decode"] == serving["flash_decode_fused"] == 0,
           f"serving over the arena launched a slab decode kernel: {serving}")
-    int8 = any(q in ("W8A16", "W8A8") for t in run["cohort_methods"]
-               for q in t.values())
-    other = any(q not in ("W8A16", "W8A8") for t in run["cohort_methods"]
-                for q in t.values())
+    # the methods served: each epoch's cohort method, and each request's
+    # own (a split cohort serves some rows at its second method)
+    served = {q for t in run["cohort_methods"] for q in t.values()} \
+        | set(run["methods"])
+    int8 = any(q in ("W8A16", "W8A8") for q in served)
+    other = any(q not in ("W8A16", "W8A8") for q in served)
     check((serving["flash_decode_fused_paged"] > 0) == int8
           and (serving["flash_decode_paged"] > 0) == other,
-          f"serving launches {serving} do not follow the cohorts' methods "
-          f"{run['cohort_methods']}")
+          f"serving launches {serving} do not follow the methods served: "
+          f"cohorts {run['cohort_methods']}, requests {run['methods']}")
     snapped = policy._measured
     log(f"calibration on {beta['arch']} ({beta['backend']}, "
         f"{seen['calibration_s']:.1f} s): "
@@ -1329,8 +1464,9 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     slab_decode = ("flash_decode", "flash_decode_paged")
     runs = {"bloom7b1_dftsp_w8a16": epoch_path(
         engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
-        ("flash_decode_fused", "w8a16"),
-        slab_decode + ("flash_decode_fused_paged", "w8a8", "w4a16"), rate,
+        ("flash_decode_fused", "w8a16", "w8a16_tc"),
+        slab_decode + ("flash_decode_fused_paged", "w8a8", "w4a16",
+                       "w4a16_tc"), rate,
         n_epochs)}
     prompts, caps = _prompts(cfg, batch, s_max, n_max)
     for bits in (8, (8, 8)):
@@ -1338,7 +1474,7 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     log(f"slice: {cfg.arch_id}: generate == generate_reference at W8A16 and "
         f"W8A8 ({batch} rows, {n_max} tokens)")
     runs["bloom7b1_continuous_w8a16"] = continuous_phase(
-        engine, launched=("flash_decode_fused_paged", "w8a16"),
+        engine, launched=("flash_decode_fused_paged", "w8a16", "w8a16_tc"),
         idle=slab_decode + ("flash_decode_fused",),
         label="bloom7b1_continuous_w8a16")
     runs["bloom7b1_continuous_auto_measured"] = \
@@ -1386,6 +1522,10 @@ def main() -> int:
     libs = _build.build_all()
     log(f"build: {sorted(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_lines("quant_matmul", "qmm_tc")
+    check(len(ptxas) == 2, f"ptxas -v reported {len(ptxas)} qmm_tc kernels")
+    for line in ptxas:
+        log(f"ptxas -v, {line}")
 
     with torch.no_grad():
         kernels = kernel_phase()

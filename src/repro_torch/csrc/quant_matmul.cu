@@ -9,23 +9,47 @@
 // q is int8 (K, N) row-major, or for W4 packed (ceil(K/2), N): packed row
 // p holds row 2p in its low nibble and row 2p+1 in its high nibble.
 //
-// What bounds it on an H100: at decode (M = batch <= 8) the weight stream,
-// K*N bytes (K*N/2 for W4) against 3.35 TB/s; the arithmetic is tiny.  At
-// prefill (M = batch * prompt length) the operations, 2*M*N*K.
+// Three kernels; the wrapper (kernels/quant_matmul.py, _route) picks one
+// from the shapes and types before the launch:
 //
-// Design for the weight stream (skinny kernel, M <= 8): the weights go from
-// device memory straight to registers, each warp reading whole 32-byte
-// sectors of a weight row for four column groups at once, and are
-// dequantized in registers; x sits in shared memory and is broadcast.  To
-// fill all SMs at small N the K axis is split across blocks (split-K); the
-// partial sums go to a scratch buffer and a second kernel adds them in a
-// fixed order, so the result does not depend on scheduling.  For prefill a
-// tiled kernel keeps 64x64 output tiles in registers (4x4 per thread) over
-// shared-memory tiles of x and the dequantized weights; W8A8 packs four k
-// values per 32-bit word and accumulates with __dp4a in int32.  Neither
-// uses tensor cores yet (wgmma and TMA are later work), so prefill runs at
-// CUDA-core rate.  Integer sums are exact, so W8A8 is bitwise equal to its
-// plain PyTorch version, including the writeout float(acc) * sx * sw.
+// qmm_skinny (+ qmm_reduce_splits), every tier at M <= 8 (decode).  Bound
+//   by the weight stream, K*N bytes (K*N/2 for W4) against 3.35 TB/s.  The
+//   weights go from device memory straight to registers, each warp reading
+//   whole 32-byte sectors of a weight row for four column groups at once,
+//   and are dequantized in registers; x sits in shared memory and is
+//   broadcast.  To fill all SMs at small N the K axis is split across
+//   blocks; a second kernel adds the partial sums in a fixed order, so the
+//   result does not depend on scheduling.
+//
+// qmm_tc, W8A16 and W4A16 with bfloat16 x at M > 8 (prefill).  Bound by
+//   the operations, 2*M*N*K against 989 TFLOP/s bf16, which only the tensor
+//   cores reach.  The scale is per output column, so it leaves the sum:
+//   out[m, n] = bf16(s[n] * sum_k x[m, k] * q[k, n]); int8 and int4 values
+//   are exact in bf16 and their products exact in the float32 accumulator.
+//   A 128x128 output tile per block walks K in stages of 64 over a ring of
+//   QT_STAGES stages in shared memory.  One producer thread keeps TMA loads
+//   of the x tile (128B-swizzled, the layout wgmma reads) and the raw int8
+//   or packed int4 weight tile in flight, completing on a "full" mbarrier
+//   per stage.  Two consumer warpgroups (64 output rows each) convert the
+//   stage's weights to a bf16 tile in the 128B-swizzled N-major layout
+//   (byte-permute into a float32 magic number, exact), fence the generic
+//   stores to the async proxy, meet at a named barrier, and issue four
+//   wgmma m64n128k16 with A = the x tile and B = the converted tile (its
+//   descriptor's transpose bit names the N-major layout).  One wgmma group
+//   stays in flight while the next stage converts; a stage goes back to the
+//   producer through an "empty" mbarrier once its group has completed.  The
+//   epilogue multiplies by s[n] and rounds to bf16.  Every output element
+//   sums its k stages in one order whatever M is: no split-K.
+//
+// qmm_tiled, the other M > 8 cases: float32 x (held to the CPU's tokens on
+//   reduced float32 models), shapes the TMA does not take (K % 8 or N % 16
+//   not 0, unaligned pointers), and W8A8 at prefill.  64x64 output tiles in
+//   registers (4x4 per thread) over shared-memory tiles of x and the
+//   dequantized weights, on CUDA cores; W8A8 packs four k values per 32-bit
+//   word and accumulates with __dp4a in int32.  Integer sums are exact, so
+//   W8A8 is bitwise equal to its plain PyTorch version, including the
+//   writeout float(acc) * sx * sw.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -311,6 +335,310 @@ qmm_tiled(const XT* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16 prefill, W8A16 / W4A16): TMA -> mbarrier ring ->
+// dequantize to a bf16 tile -> wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int QT_BM = 128, QT_BN = 128, QT_BK = 64;   // output tile, k stage
+constexpr int QT_STAGES = 4;
+constexpr int QT_CONSUMERS = 256;                     // two warpgroups
+constexpr int QT_THREADS = QT_CONSUMERS + 32;         // + one producer warp
+constexpr int QT_X_BYTES = QT_BM * QT_BK * 2;         // 16 KB, 128B-swizzled
+constexpr int QT_B_BYTES = QT_BK * QT_BN * 2;         // 16 KB bf16, N-major
+constexpr int QT_Q_BYTES = QT_BK * QT_BN;             // 8 KB int8 (W4: 4 KB)
+constexpr int QT_STAGE_BYTES = QT_X_BYTES + QT_B_BYTES + QT_Q_BYTES;
+// + 1 KB to align the ring to the 1024-byte period of the 128B swizzle
+constexpr int QT_SMEM = QT_STAGES * QT_STAGE_BYTES + 2 * QT_STAGES * 8 + 1024;
+constexpr int QT_NAMED_BAR = 1;                       // 0 is __syncthreads
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// spin until the barrier's phase differs from ``parity``
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// 2-D TMA load of one box at (c0 innermost, c1) into shared memory; bytes
+// past the tensor's edge arrive as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+       | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+       | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+       | (uint64_t)1 << 62;
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64x128 f32, this warpgroup's fragment) += A (64x16 bf16, K-major) x
+// B (16x128 bf16, N-major: transpose bit set)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// four small integers, one per byte of ``u`` and offset to be unsigned
+// (u_i = v_i + bias - 2^23), to two bf16x2: each byte goes into the
+// mantissa of 2^23 (a float32 whose low bits are the integer), the offset
+// comes off in one exact subtraction, and |v_i| <= 128 rounds to bf16
+// exactly
+__device__ __forceinline__ uint2 bytes_to_bf16x4(uint32_t u, float bias) {
+  const float f0 = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - bias;
+  const float f1 = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - bias;
+  const float f2 = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - bias;
+  const float f3 = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - bias;
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f0, f1);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f2, f3);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// the B tile: k row r (0..63), 8 consecutive columns starting at 8 * c8
+// (c8 0..15).  Two 64-column halves of 8 KB, each row 128 bytes with its
+// 16-byte chunks XOR-swizzled by r % 8 (the 128B swizzle's layout)
+__device__ __forceinline__ uint32_t b_tile_offset(int r, int c8) {
+  return (uint32_t)((c8 >> 3) * (QT_BK * 128) + r * 128 + (((c8 & 7) ^ (r & 7)) << 4));
+}
+
+// convert this consumer thread's share of a stage's weights to bf16
+template <int MODE>
+__device__ __forceinline__ void qt_convert(const uint8_t* qs, uint8_t* bs, int ct) {
+  if constexpr (MODE == MODE_W4) {
+    // 32 packed rows x 16 groups of 8 columns: two per thread
+    const float bias = 8388608.f + 8.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int idx = ct + QT_CONSUMERS * u, p = idx >> 4, c8 = idx & 15;
+      const uint2 w = *reinterpret_cast<const uint2*>(qs + p * QT_BN + 8 * c8);
+      const uint2 l0 = bytes_to_bf16x4((w.x & 0x0F0F0F0Fu) ^ 0x08080808u, bias);
+      const uint2 l1 = bytes_to_bf16x4((w.y & 0x0F0F0F0Fu) ^ 0x08080808u, bias);
+      const uint2 h0 = bytes_to_bf16x4(((w.x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, bias);
+      const uint2 h1 = bytes_to_bf16x4(((w.y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, bias);
+      *reinterpret_cast<uint4*>(bs + b_tile_offset(2 * p, c8)) =
+          make_uint4(l0.x, l0.y, l1.x, l1.y);
+      *reinterpret_cast<uint4*>(bs + b_tile_offset(2 * p + 1, c8)) =
+          make_uint4(h0.x, h0.y, h1.x, h1.y);
+    }
+  } else {
+    // 64 rows x 16 groups of 8 columns: four per thread
+    const float bias = 8388608.f + 128.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = ct + QT_CONSUMERS * u, r = idx >> 4, c8 = idx & 15;
+      const uint2 w = *reinterpret_cast<const uint2*>(qs + r * QT_BN + 8 * c8);
+      const uint2 a = bytes_to_bf16x4(w.x ^ 0x80808080u, bias);
+      const uint2 b = bytes_to_bf16x4(w.y ^ 0x80808080u, bias);
+      *reinterpret_cast<uint4*>(bs + b_tile_offset(r, c8)) = make_uint4(a.x, a.y, b.x, b.y);
+    }
+  }
+}
+
+// B descriptor offsets (bytes), N-major: between the two 64-column halves
+// (the leading offset) and between groups of 8 k rows (the stride offset)
+constexpr uint32_t QT_B_LBO = QT_BK * 128;
+constexpr uint32_t QT_B_SBO = 8 * 128;
+
+template <int MODE>
+__global__ void __launch_bounds__(QT_THREADS, 1)
+qmm_tc(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap q_map,
+       const float* __restrict__ sw, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  // the ring, 1024-byte aligned; the barriers after it
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + QT_STAGES * QT_STAGE_BYTES);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + QT_STAGES);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * QT_BM, n0 = blockIdx.x * QT_BN;
+  const int n_k = (K + QT_BK - 1) / QT_BK;
+  constexpr int QROWS = MODE == MODE_W4 ? QT_BK / 2 : QT_BK;
+  constexpr uint32_t TX = QT_X_BYTES + QROWS * QT_BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < QT_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, QT_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= QT_CONSUMERS) {
+    // producer: one thread keeps the ring full
+    if (tid == QT_CONSUMERS) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % QT_STAGES;
+        mbar_wait(empty0 + 8 * s, ((kt / QT_STAGES) & 1) ^ 1);
+        uint8_t* st = ring + s * QT_STAGE_BYTES;
+        mbar_expect_tx(full0 + 8 * s, TX);
+        tma_load_2d(smem_u32(st), &x_map, kt * QT_BK, m0, full0 + 8 * s);
+        tma_load_2d(smem_u32(st + QT_X_BYTES + QT_B_BYTES), &q_map, n0, kt * QROWS,
+                    full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows m0 + 64 wg ..
+  const int wg = tid >> 7;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % QT_STAGES;
+    uint8_t* st = ring + s * QT_STAGE_BYTES;
+    mbar_wait(full0 + 8 * s, (kt / QT_STAGES) & 1);
+    qt_convert<MODE>(st + QT_X_BYTES + QT_B_BYTES, st + QT_X_BYTES, tid);
+    // the converted tile is read by the async proxy, and by both warpgroups
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" :: "n"(QT_NAMED_BAR), "n"(QT_CONSUMERS) : "memory");
+    const uint32_t xa = smem_u32(st) + wg * 64 * 128, ba = smem_u32(st + QT_X_BYTES);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < QT_BK / 16; ++j)
+      wgmma_m64n128k16(acc, sw128_desc(xa + 32 * j, 16, 1024),
+                       sw128_desc(ba + 16 * 128 * j, QT_B_LBO, QT_B_SBO));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the group before this one has completed: its stage goes back
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc);
+    if (kt > 0) mbar_arrive(empty0 + 8 * ((kt - 1) % QT_STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+
+  // epilogue: the accumulator fragment of m64n128 -- register 4 c + 2 h + e
+  // holds row 16 warp + lane / 4 + 8 h, column 8 c + 2 (lane % 4) + e
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < QT_BN / 8; ++c) {
+    const int col = n0 + 8 * c + 2 * (lane & 3);
+    if (col >= N) continue;                 // N % 16 == 0: col + 1 < N too
+    const float s0 = sw[col], s1 = sw[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
+            __floats2bfloat162_rn(__fmul_rn(acc[4 * c + 2 * h], s0),
+                                  __fmul_rn(acc[4 * c + 2 * h + 1], s1));
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the library
+// needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) tensor read in (box_rows, box_cols) boxes
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows,
+               int cols, int elem_bytes, int box_rows, int box_cols,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE>
+int launch_tc(const void* x, const int8_t* q, const float* sw, void* out, int M, int N,
+              int K, cudaStream_t stream) {
+  const int q_rows = MODE == MODE_W4 ? (K + 1) / 2 : K;
+  alignas(64) CUtensorMap x_map, q_map;
+  if (!encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2, QT_BM, QT_BK,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, q_rows, N, 1,
+                 MODE == MODE_W4 ? QT_BK / 2 : QT_BK, QT_BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const int rc = (int)cudaFuncSetAttribute(
+      qmm_tc<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, QT_SMEM);
+  if (rc != 0) return rc;
+  dim3 grid((N + QT_BN - 1) / QT_BN, (M + QT_BM - 1) / QT_BM);
+  qmm_tc<MODE><<<grid, QT_THREADS, QT_SMEM, stream>>>(
+      x_map, q_map, sw, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}
+
 template <int MODE, typename XT, typename TO>
 int launch(const void* x, const float* sx, const int8_t* q, const float* sw,
            void* out, void* partial, int M, int N, int K, int splits,
@@ -352,6 +680,17 @@ int qmm_a16(const void* x, const void* q, const void* scale, void* out,
   }
   return bf16 ? launch<MODE_W8, __nv_bfloat16, __nv_bfloat16>(x, nullptr, qp, sp, out, partial, M, N, K, splits, k_per_split, st)
               : launch<MODE_W8, float, float>(x, nullptr, qp, sp, out, partial, M, N, K, splits, k_per_split, st);
+}
+
+// W8A16 (bits 8) / W4A16 (bits 4) on the tensor cores: x and out bfloat16,
+// K % 8 == 0, N % 16 == 0, and x, q 16-byte aligned (the TMA's rules).
+int qmm_a16_tc(const void* x, const void* q, const void* scale, void* out,
+               int M, int N, int K, int bits, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const int8_t*>(q);
+  auto sp = static_cast<const float*>(scale);
+  return bits == 4 ? launch_tc<MODE_W4>(x, qp, sp, out, M, N, K, st)
+                   : launch_tc<MODE_W8>(x, qp, sp, out, M, N, K, st);
 }
 
 // W8A8: xq int8 (M, K) with row scales sx (M,) float32; out float32

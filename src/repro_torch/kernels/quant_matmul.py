@@ -4,7 +4,9 @@ plain PyTorch versions.
 The kernels (``csrc/quant_matmul.cu``) replace the Pallas TPU kernels of
 ``repro/kernels/quant_matmul.py`` (``_mm_kernel_int8``, ``_mm_kernel_int4``,
 ``_mm_kernel_w8a8``).  ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
-launch them on CUDA tensors and count their launches in ``LAUNCHES``;
+launch them on CUDA tensors and count their launches in ``LAUNCHES``
+(``w8a16_tc`` / ``w4a16_tc`` count the tensor-core launches a second time,
+beside ``w8a16`` / ``w4a16``); ``route`` is the plan that picks the kernel;
 ``quant_matmul_plain`` / ``quant_matmul_a8_plain`` are the same functions in
 plain PyTorch (twins of ``repro/kernels/ref.py``), which the CPU path and
 the on-card comparisons use.
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.quant.ptq import unpack_int4
 
-LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0}
+LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0, "w8a16_tc": 0, "w4a16_tc": 0}
 
 _SKINNY_ROWS = 8        # csrc: SK_ROWS, rows of x per skinny block
 _SKINNY_COLS = 128      # csrc: SK_BN, columns per skinny block
@@ -80,6 +82,22 @@ def _splits(M: int, N: int, K: int):
     return math.ceil(K / kps), kps
 
 
+def route(M: int, K: int, N: int, dtype: torch.dtype, bits: int,
+          aligned: bool = True) -> str:
+    """Which kernel ``quant_matmul_cuda`` launches, from shapes and types
+    alone: "skinny" at M <= 8 (decode); "tc", the tensor-core kernel, for
+    bfloat16 x at M > 8 where the TMA can read the operands (16-byte
+    aligned bases and row strides: K % 8 == 0 for x, N % 16 == 0 for q and
+    the output); "tiled" for the rest.  ``aligned``: x and q start on a
+    16-byte boundary."""
+    if M <= _SKINNY_ROWS:
+        return "skinny"
+    if (dtype == torch.bfloat16 and bits in (4, 8) and aligned
+            and K % 8 == 0 and N % 16 == 0):
+        return "tc"
+    return "tiled"
+
+
 def _check_cuda(name, t, dtype, shape):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
@@ -103,17 +121,26 @@ def quant_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check_cuda("x", x, x.dtype, (M, K))
     _check_cuda("q", q, torch.int8, ((K + 1) // 2 if bits == 4 else K, N))
     _check_cuda("scale", scale, torch.float32, (N,))
-    splits, kps = _splits(M, N, K)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _build.library("quant_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    name = "w4a16" if bits == 4 else "w8a16"
+    if route(M, K, N, x.dtype, bits,
+             x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0) == "tc":
+        rc = lib.qmm_a16_tc(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                            out.data_ptr(), M, N, K, bits, stream)
+        _build.check(rc, "qmm_a16_tc")
+        LAUNCHES[name] += 1
+        LAUNCHES[name + "_tc"] += 1
+        return out
+    splits, kps = _splits(M, N, K)
     partial = torch.empty((splits, M, N) if splits > 1 else (0,),
                           dtype=torch.float32, device=x.device)
-    lib = _build.library("quant_matmul")
     rc = lib.qmm_a16(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                      out.data_ptr(), partial.data_ptr(), M, N, K, bits,
-                     int(x.dtype == torch.bfloat16), splits, kps,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+                     int(x.dtype == torch.bfloat16), splits, kps, stream)
     _build.check(rc, "qmm_a16")
-    LAUNCHES["w4a16" if bits == 4 else "w8a16"] += 1
+    LAUNCHES[name] += 1
     return out
 
 

@@ -81,6 +81,82 @@ def test_quant_matmul_a8_cuda_bitwise(cuda, mkn):
         assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s, dt))
 
 
+# the tensor-core path (bf16, M > 8): M in {16, 129, 520, 4096}, N a
+# multiple of 16 but not of 128 (272) and BLOOM-3B's 2560 / 10240, K in
+# {64, 80, 2560, 10240} and 72 (36 packed int4 rows: a ragged last stage)
+TC_MKN = [(16, 64, 272), (129, 80, 272), (520, 2560, 2560),
+          (4096, 2560, 10240), (4096, 10240, 2560), (129, 2560, 10240),
+          (16, 10240, 272), (520, 72, 2560), (4096, 64, 272)]
+
+
+def _bf16_mm_inputs(M, K, N, bits, device, seed=0):
+    """x in bf16 and weights from normal / sqrt(K): outputs of order 1 at
+    every K, which the tolerance's atol assumes."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                         .astype(np.float32))
+    t = tptq.quantize(w, bits)
+    return (x.to(torch.bfloat16).to(device), t.q.to(device),
+            t.scale.reshape(-1).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mkn", TC_MKN)
+def test_quant_matmul_tensor_core_vs_plain(cuda, mkn, bits):
+    M, K, N = mkn
+    assert tqm.route(M, K, N, torch.bfloat16, bits) == "tc"
+    x, q, s = _bf16_mm_inputs(M, K, N, bits, cuda)
+    ops.reset_launch_counts()
+    got = tqm.quant_matmul_cuda(x, q, s, bits)
+    name = "w4a16" if bits == 4 else "w8a16"
+    counts = ops.launch_counts()
+    assert counts[name + "_tc"] == counts[name] == 1
+    torch.testing.assert_close(got, tqm.quant_matmul_plain(x, q, s, bits),
+                               **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_tensor_core_rows_invariant_and_deterministic(cuda,
+                                                                   bits):
+    """A row's output does not depend on M, and two calls are equal."""
+    x, q, s = _bf16_mm_inputs(4096, 2560, 2560, bits, cuda, seed=3)
+    full = tqm.quant_matmul_cuda(x, q, s, bits)
+    assert torch.equal(full, tqm.quant_matmul_cuda(x, q, s, bits))
+    for m in (512, 136):
+        assert torch.equal(full[:m],
+                           tqm.quant_matmul_cuda(x[:m].contiguous(), q, s,
+                                                 bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, N, x dtype, bits, offset of x in elements): the plan's tiled
+    # shapes -- K % 8 != 0, N % 16 != 0, float32 x, an unaligned x
+    (129, 84, 272, torch.bfloat16, 8, 0),
+    (129, 81, 272, torch.bfloat16, 4, 0),
+    (129, 80, 200, torch.bfloat16, 4, 0),
+    (129, 2560, 256, torch.float32, 8, 0),
+    (129, 80, 272, torch.bfloat16, 8, 1)])
+def test_quant_matmul_tiled_shapes_still_pass(cuda, case):
+    M, K, N, dt, bits, off = case
+    x, q, s = _bf16_mm_inputs(M, K, N, bits, cuda, seed=5)
+    buf = torch.empty(M * K + off, dtype=dt, device=cuda)
+    xo = buf[off:].view(M, K)
+    xo.copy_(x)
+    assert tqm.route(M, K, N, dt, bits, xo.data_ptr() % 16 == 0) == "tiled"
+    ops.reset_launch_counts()
+    got = tqm.quant_matmul_cuda(xo, q, s, bits)
+    counts = ops.launch_counts()
+    assert counts["w4a16" if bits == 4 else "w8a16"] == 1
+    assert counts["w8a16_tc"] == counts["w4a16_tc"] == 0
+    want = tqm.quant_matmul_plain(xo, q, s, bits)
+    torch.testing.assert_close(got, want, **(
+        BF16_TOL if dt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("dh", [64, 80])
