@@ -11,14 +11,18 @@ Phases (any failure exits non-zero and prints no result):
    as ``nvidia-smi`` reports them.
 2. Build: every ``src/repro_torch/csrc/*.cu`` is compiled with ``nvcc`` for
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
-   once); what ``-Xptxas -v`` said of the tensor-core kernel is printed.
+   once); what ``-Xptxas -v`` said of the tensor-core kernels (``qmm_tc``,
+   ``qmm_a8_wgmma``) is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version and timed beside its bound, its plain version and the library
    call (or composition of calls) that computes the same function.  K1-K5
    at the shapes BLOOM-3B's serving path gives them (decode M = 8 and
-   prefill M = 8 * 512 for the quantized matmuls, where K1 and K3 run the
-   tensor-core kernel, also at BLOOM-7B1's prefill layer, held bitwise
-   row-invariant in M and deterministic; B = 8, W = 640, 32 heads
+   prefill M = 8 * 512 for the quantized matmuls, where K1, K2 and K3 run
+   the tensor-core kernels, also at BLOOM-7B1's prefill layer, held bitwise
+   row-invariant in M and deterministic (K2 bitwise equal to its plain
+   version), and timed beside the CUDA-core kernel they replaced; the W8A8
+   tier's eager ``quantize_rowwise`` is timed at the same shapes; B = 8,
+   W = 640, 32 heads
    of 80 for decode attention, over a slab and, paged, through a block
    table of 16-slot pages); the paged kernel must be bitwise equal to the
    slab kernel on the gathered slab and read the leading corner of a wider
@@ -40,10 +44,12 @@ Phases (any failure exits non-zero and prints no result):
    method per epoch, W8A8 among them) and ``dftsp`` deployed at W4A16 on a
    4-bit engine.  Each run is counted on its own: the launch counters are
    zeroed just before it and read just after, and each kernel must have
-   launched in the run that reaches its tier; a run that served W8A16 or
-   W4A16 must have prefilled on the tensor cores, and a decode-only window
-   must launch no tensor-core kernel.  ``generate`` must equal
-   ``generate_reference`` at each quantized precision.
+   launched in the run that reaches its tier; a run that served W8A16,
+   W4A16 or W8A8 must have prefilled on the tensor cores, and a decode-only
+   window must launch no tensor-core kernel.  ``generate`` must equal
+   ``generate_reference`` at each quantized precision.  One W8A8 prefill
+   (here and at BLOOM-7B1) runs with CUDA events around each call of
+   ``quantize_rowwise`` and of K2: their time and share inside the prefill.
 6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
    + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
    pages (``dftsp``, chunk k = 16), counted on its own: the paged decode
@@ -64,7 +70,8 @@ Phases (any failure exits non-zero and prints no result):
    reported apart).  ``generate == generate_reference`` and paged == slab
    == ``generate`` (with a cohort refilled at step 40) at W8A16 and W8A8.
    The decode step is timed eager and as one CUDA graph, fused and with the
-   fused gate forced off.
+   fused gate forced off.  W8A16 and W8A8 must hold one kept embedding
+   table between them; the kept tables' bytes per precision are printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -216,12 +223,33 @@ def _tiled_a16(x, q, s, bits):
     return out
 
 
+def _tiled_a8(xq, sx, q, s):
+    """The CUDA-core tiled kernel on int8 xq at M > 8, bf16 out, called
+    directly: the prefill design the tensor-core kernel replaced, timed
+    beside it."""
+    from repro_torch.kernels import _build
+    M, K = xq.shape
+    N = s.numel()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    part = torch.empty((0,), dtype=torch.int32, device=xq.device)
+    rc = _build.library("quant_matmul").qmm_a8(
+        xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+        out.data_ptr(), part.data_ptr(), M, N, K, 1, 1, K,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "qmm_a8")
+    return out
+
+
 def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
                        phases=(("decode", DECODE_M), ("prefill", PREFILL_M))):
     """K1 (w8a16), K2 (w8a8) or K3 (w4a16) at one layer's shapes (BLOOM-3B's
-    by default).  At prefill K1 and K3 run the tensor-core kernel: its rows
+    by default).  At prefill all three run a tensor-core kernel: its rows
     must not depend on M (rows of the M = 4096 call equal the same rows of
-    M = 512 and M = 136 calls) and two calls must be bitwise equal."""
+    M = 512 and M = 136 calls) and two calls must be bitwise equal; K2 is
+    bitwise equal to its plain version at every phase.  At prefill the
+    CUDA-core tiled kernel is timed on the same work, and for K2 also the
+    eager ``quantize_rowwise`` of its x (over copies of x that outsize the
+    L2, as the weights are at decode)."""
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.quant import ptq
     bits = 4 if tier == "w4a16" else 8
@@ -229,7 +257,7 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err, f32_err = 0.0, 0.0
     acc = {phase: dict(ms=0.0, plain=0.0, lib_bf16=0.0, lib_int8=0.0,
-                       tiled=0.0, nb=0.0, no=0.0)
+                       tiled=0.0, qrow=0.0, nb=0.0, no=0.0)
            for phase, _ in phases}
     for K, N in sorted({(k, n) for _, k, n in layer}):
         count = sum(1 for _, k, n in layer if (k, n) == (K, N))
@@ -247,14 +275,33 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
         for phase, M in phases:
             x = torch.randn((M, K), generator=gen, device=dev)
             xb = x.to(torch.bfloat16)
-            tc = tier != "w8a8" and M > DECODE_M
+            tc = M > DECODE_M
             if tier == "w8a8":
                 xq, sx = ptq.quantize_rowwise(xb)
+                check(qm.route(M, K, N, torch.int8, 8)
+                      == ("tc" if tc else "skinny"),
+                      f"w8a8 M={M} K={K} N={N}: route "
+                      f"{qm.route(M, K, N, torch.int8, 8)}")
                 got = qm.quant_matmul_a8_cuda(xq, sx, q, s, torch.bfloat16)
                 want = qm.quant_matmul_a8_plain(xq, sx, q, s, torch.bfloat16)
                 check(torch.equal(got, want),
                       f"w8a8 M={M} K={K} N={N}: not bitwise equal to the "
                       f"plain version (max err {_max_err(got, want)})")
+                if tc:
+                    for dt in (torch.float32, torch.bfloat16):
+                        g = qm.quant_matmul_a8_cuda(xq, sx, q, s, dt)
+                        check(torch.equal(g, qm.quant_matmul_a8_plain(
+                            xq, sx, q, s, dt)) and torch.equal(
+                                g, qm.quant_matmul_a8_cuda(xq, sx, q, s, dt)),
+                              f"w8a8 tensor cores M={M} K={K} N={N} {dt}: "
+                              f"not bitwise equal to the plain version, or "
+                              f"two calls differ")
+                    for m in (512, 136):
+                        check(torch.equal(got[:m], qm.quant_matmul_a8_cuda(
+                            xq[:m].contiguous(), sx[:m].contiguous(), q, s,
+                            torch.bfloat16)),
+                              f"w8a8 tensor cores K={K} N={N}: rows of "
+                              f"M={M} != the same rows of M={m}")
                 run = lambda i: qm.quant_matmul_a8_cuda(  # noqa: E731
                     xq, sx, qs[i], s, torch.bfloat16)
                 plain = lambda i: qm.quant_matmul_a8_plain(  # noqa: E731
@@ -299,7 +346,16 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
             a["ms"] += count * device_ms(run, n_rot)
             a["plain"] += count * device_ms(plain, n_rot)
             a["lib_bf16"] += count * device_ms(lib, n_rot_dense)
-            if tc:
+            if tc and tier == "w8a8":
+                a["tiled"] += count * device_ms(
+                    lambda i: _tiled_a8(xq, sx, qs[i], s))
+                n_x = max(1, min(16, math.ceil(ROTATE_BYTES
+                                               / (2 * xb.numel()))))
+                xbs = [xb.clone() for _ in range(n_x)]
+                a["qrow"] += count * device_ms(
+                    lambda i: ptq.quantize_rowwise(xbs[i]), n_x)
+                del xbs
+            elif tc:
                 a["tiled"] += count * device_ms(
                     lambda i: _tiled_a16(xb, qs[i], s, bits))
             else:
@@ -336,12 +392,18 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
         if a["tiled"] is not None:
             # the same work on the CUDA-core tiled kernel it replaced
             out[phase]["cuda_core_tiled_ms"] = a["tiled"]
-    tol = "bitwise" if tier == "w8a8" else \
-        f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; " \
-        f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})" \
-        + ("" if tier == "w8a8" or "prefill" not in acc else
+            if tier == "w8a8":
+                # the W8A8 tier's eager activation quantization of the
+                # layer's six inputs, outside the kernel
+                out[phase]["quantize_rowwise_ms"] = a["qrow"]
+    tol = ("bitwise" if tier == "w8a8" else
+           f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; "
+           f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})") \
+        + ("" if "prefill" not in acc else
            "; prefill on the tensor cores: rows of M=4096 bitwise == those "
-           "of M=512 and M=136, two calls bitwise equal")
+           "of M=512 and M=136, two calls bitwise equal"
+           + ("" if tier != "w8a8" else
+              ", bf16 and f32 out"))
     return max_err, tol, out
 
 
@@ -778,6 +840,14 @@ KERNELS = [
      "src/repro_torch/csrc/quant_matmul.cu",
      "src/repro/kernels/quant_matmul.py:79",
      "bloom7b1_continuous_auto_measured"),
+    # the int8 tensor-core kernel (K2 at prefill); BLOOM-7B1's launches come
+    # from the measured run, whose calibration runs every method
+    ("quant_matmul_w8a8_tc", "w8a8_tc", "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:97", "dftsp_auto_split"),
+    ("quant_matmul_w8a8_tc_bloom7b1", "w8a8_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:97",
+     "bloom7b1_continuous_auto_measured"),
     ("flash_decode", "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:40", "dftsp_w8a16"),
     ("flash_decode_paged", "flash_decode_paged",
@@ -823,15 +893,15 @@ def kernel_phase():
             t = both["prefill"]
             shape = (f"one BLOOM-7B1 prefill layer on the tensor cores: 4 x "
                      f"(K=N=4096) + (4096->16384) + (16384->4096), "
-                     f"M={PREFILL_M}, bf16 (cuda_core_tiled_ms: the same "
-                     f"work on the CUDA-core tiled kernel)")
+                     f"M={PREFILL_M}, {_operands(counter)} (cuda_core_tiled_"
+                     f"ms: the same work on the CUDA-core tiled kernel)")
         elif counter.endswith("_tc"):
             err, tol, both = qmm[counter[:-3]]
             t = both["prefill"]
             shape = (f"one BLOOM-3B prefill layer on the tensor cores: 4 x "
                      f"(K=N=2560) + (2560->10240) + (10240->2560), "
-                     f"M={PREFILL_M}, bf16 (cuda_core_tiled_ms: the same "
-                     f"work on the CUDA-core tiled kernel)")
+                     f"M={PREFILL_M}, {_operands(counter)} (cuda_core_tiled_"
+                     f"ms: the same work on the CUDA-core tiled kernel)")
         elif counter in ("flash_decode_fused", "flash_decode_fused_paged"):
             err, tol, t = fused["K6" if counter == "flash_decode_fused"
                                 else "K7"]
@@ -860,9 +930,8 @@ def kernel_phase():
             t.update({f"prefill_{k}": v for k, v in both["prefill"].items()})
             shape = (f"one BLOOM-3B layer: 4 x (K=N=2560) + (2560->10240) + "
                      f"(10240->2560), M={DECODE_M} decode "
-                     f"(prefill_*: M={PREFILL_M}"
-                     + ("" if counter == "w8a8" else ", tensor cores")
-                     + "), bf16")
+                     f"(prefill_*: M={PREFILL_M}, tensor cores), "
+                     f"{_operands(counter)}")
         results[name] = dict(max_abs_err=err, tolerance=tol, shape=shape, **t)
         log(f"{name}: max_abs_err={err:.4g} ({tol}); ms={t['ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
@@ -873,8 +942,15 @@ def kernel_phase():
                f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else "")
             + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else "")
             + (f"; cuda_core_tiled_ms={t['cuda_core_tiled_ms']:.3f}"
-               if "cuda_core_tiled_ms" in t else ""))
+               if "cuda_core_tiled_ms" in t else "")
+            + (f"; quantize_rowwise_ms={t['quantize_rowwise_ms']:.3f}"
+               if "quantize_rowwise_ms" in t else ""))
     return results
+
+
+def _operands(counter: str) -> str:
+    return ("int8 xq (quantize_rowwise of bf16 x) and weights, bf16 out"
+            if counter.startswith("w8a8") else "bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -939,6 +1015,59 @@ def small_reference_phase(arch="bloom-3b", n_heads=4,
         f"bits {list(paged_bits)}")
 
 
+def w8a8_prefill_breakdown(engine, params, tokens):
+    """One W8A8 prefill with CUDA events around the whole call and around
+    each call of its activation quantization (``ops.quantize_rowwise``) and
+    of K2 (``quant_matmul_a8_cuda``): the time each takes inside the prefill
+    itself.  An event pair spans what the stream ran between its two
+    records, so a host gap inside a call would count too; the prefill's
+    span is reported beside the sum."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    spans = {"quantize_rowwise": [], "kernel": []}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return call
+
+    quantize, kernel = ops.quantize_rowwise, qm.quant_matmul_a8_cuda
+    ops.quantize_rowwise = timed(quantize, "quantize_rowwise")
+    qm.quant_matmul_a8_cuda = timed(kernel, "kernel")
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        engine._prefill(params, tokens)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        ops.quantize_rowwise, qm.quant_matmul_a8_cuda = quantize, kernel
+    total = start.elapsed_time(end)
+    out = dict(prefill_span_ms=total)
+    for key, evs in spans.items():
+        ms = sum(a.elapsed_time(b) for a, b in evs)
+        out.update({f"{key}_calls": len(evs), f"{key}_ms": ms,
+                    f"{key}_share": ms / total})
+    check(out["kernel_calls"] > 0 and out["quantize_rowwise_calls"]
+          == out["kernel_calls"],
+          f"{engine.cfg.arch_id}: W8A8 prefill breakdown saw {out}")
+    log(f"{engine.cfg.arch_id} W8A8 prefill (M={tokens.numel()}), timed in "
+        f"place: span {total:.1f} ms; quantize_rowwise "
+        f"{out['quantize_rowwise_ms']:.1f} ms over "
+        f"{out['quantize_rowwise_calls']} calls (share "
+        f"{out['quantize_rowwise_share']:.3f}); K2 {out['kernel_ms']:.1f} ms "
+        f"over {out['kernel_calls']} calls (share {out['kernel_share']:.3f})")
+    return out
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -952,18 +1081,20 @@ def _timed(fn):
 # counters that must not).  Each run is counted on its own.
 MAIN_PATHS = [
     ("dftsp_w8a16", "W8A16", "dftsp", 8,
-     ("w8a16", "w8a16_tc", "flash_decode"), ("w8a8", "w4a16", "w4a16_tc")),
+     ("w8a16", "w8a16_tc", "flash_decode"),
+     ("w8a8", "w8a8_tc", "w4a16", "w4a16_tc")),
     ("dftsp_auto_split", "W8A16", "dftsp:quant=auto,split=true", 8,
-     ("w8a8", "flash_decode"), ()),
+     ("w8a8", "w8a8_tc", "flash_decode"), ()),
     ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4,
-     ("w4a16", "w4a16_tc", "flash_decode"), ("w8a16", "w8a16_tc", "w8a8")),
+     ("w4a16", "w4a16_tc", "flash_decode"),
+     ("w8a16", "w8a16_tc", "w8a8", "w8a8_tc")),
 ]
 
 
 def check_prefill_on_tensor_cores(counts, label):
-    """A run that served W8A16 or W4A16 prefilled in bf16 at M > 8, which
-    the plan sends to the tensor-core kernel: its count must have moved."""
-    for c in ("w8a16", "w4a16"):
+    """A run that served W8A16, W4A16 or W8A8 prefilled at M > 8, which the
+    plan sends to a tensor-core kernel: its count must have moved."""
+    for c in ("w8a16", "w4a16", "w8a8"):
         if counts[c] > 0:
             check(counts[c + "_tc"] > 0,
                   f"{label}: {c} launched {counts[c]} times but never on "
@@ -1219,7 +1350,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         # a decode-only window: the quantized tier launches, the
         # tensor-core prefill kernel does not
         counts = ops.launch_counts()
-        check(counts["w8a16_tc"] == counts["w4a16_tc"] == 0
+        check(counts["w8a16_tc"] == counts["w4a16_tc"]
+              == counts["w8a8_tc"] == 0
               and counts[{"W8A16": "w8a16", "W8A8": "w8a8", "W4A16": "w4a16",
                           "BF16": "flash_decode"}[label]] > 0,
               f"slice: {label}: decode-only window launched {counts}")
@@ -1232,6 +1364,9 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                               decode_ms_per_step=step_ms,
                               decode_device_ms_per_step=dev_ms,
                               decode_idle_share=1.0 - dev_ms / step_ms)
+        if label == "W8A8":
+            timings[label]["in_prefill"] = w8a8_prefill_breakdown(
+                engine, params, tokens)
         log(f"slice: {label}: prefill (M={batch * s_max}) {pre_ms:.1f} ms; "
             f"decode step {step_ms:.2f} ms eager, {dev_ms:.2f} ms of device "
             f"work (idle share {1.0 - dev_ms / step_ms:.3f}); generate of "
@@ -1251,7 +1386,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         f"{unembed['table_bytes'] / 1e9:.3f} GB read per step in "
         f"{unembed['matmul_ms']:.3f} ms; dequantizing it takes "
         f"{deq_ms:.1f} ms (not done per step)")
-    return dict(runs=runs, timings=timings, unembed=unembed, paged=paged)
+    return dict(runs=runs, timings=timings, unembed=unembed, paged=paged,
+                kept_tables=kept_tables(engine))
 
 
 def _prompts(cfg, batch, s_max, n_max, seed=0):
@@ -1339,13 +1475,16 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False):
         calls = {k: v for k, v in ops.launch_counts().items() if v}
     finally:
         ops.fusable_decode = gate
-    check(not calls.get("w8a16_tc") and not calls.get("w4a16_tc"),
+    check(not calls.get("w8a16_tc") and not calls.get("w4a16_tc")
+          and not calls.get("w8a8_tc"),
           f"{engine.cfg.arch_id} {label}: a decode step launched the "
           f"tensor-core prefill kernel: {calls}")
     out = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
                decode_device_ms_per_step=dev_ms,
                decode_idle_share=1.0 - dev_ms / step_ms,
                kernel_calls_per_step=calls, aten_ops_per_step=n_ops.n)
+    if bits == (8, 8) and not unfused:
+        out["in_prefill"] = w8a8_prefill_breakdown(engine, params, tokens)
     log(f"{engine.cfg.arch_id} {label}: prefill (M="
         f"{len(prompts) * engine.s_max}) {pre_ms:.1f} ms; decode step "
         f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
@@ -1408,7 +1547,7 @@ def continuous_measured_phase(engine, k: int = 16):
               if METHODS[n].weight_bits < 16), "measured alphas missing")
     check(len(swap["pairs"]) == 12, f"swap pairs: {sorted(swap['pairs'])}")
     for c in ("flash_decode_fused", "w8a16", "w8a8", "w4a16",
-              "flash_decode", "w8a16_tc", "w4a16_tc"):
+              "flash_decode", "w8a16_tc", "w4a16_tc", "w8a8_tc"):
         check(cal[c] > 0, f"calibration: {c} was never launched ({cal})")
     check_prefill_on_tensor_cores(serving, "measured serving")
     check(serving["flash_decode"] == serving["flash_decode_fused"] == 0,
@@ -1465,8 +1604,8 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     runs = {"bloom7b1_dftsp_w8a16": epoch_path(
         engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
         ("flash_decode_fused", "w8a16", "w8a16_tc"),
-        slab_decode + ("flash_decode_fused_paged", "w8a8", "w4a16",
-                       "w4a16_tc"), rate,
+        slab_decode + ("flash_decode_fused_paged", "w8a8", "w8a8_tc",
+                       "w4a16", "w4a16_tc"), rate,
         n_epochs)}
     prompts, caps = _prompts(cfg, batch, s_max, n_max)
     for bits in (8, (8, 8)):
@@ -1487,7 +1626,26 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                for label, bits, unfused in (
                    ("W8A16", 8, False), ("W8A16 unfused", 8, True),
                    ("W8A8", (8, 8), False), ("BF16", 0, False))}
-    return dict(runs=runs, timings=timings, paged=paged)
+    return dict(runs=runs, timings=timings, paged=paged,
+                kept_tables=kept_tables(engine))
+
+
+def kept_tables(engine):
+    """The dequantized embedding tables the engine keeps, in bytes per
+    precision and counted once per storage: W8A16 and W8A8 quantize the
+    table alike and must hold one between them."""
+    tables = engine.kept_tables()
+    check(8 in tables and tables.get((8, 8)) is tables[8],
+          f"{engine.cfg.arch_id}: W8A16 and W8A8 keep separate embedding "
+          f"tables ({sorted(map(str, tables))})")
+    per = {str(b): t.numel() * t.element_size() for b, t in tables.items()}
+    distinct = sum({t.untyped_storage().data_ptr():
+                    t.numel() * t.element_size()
+                    for t in tables.values()}.values())
+    log(f"{engine.cfg.arch_id}: kept embedding tables, bytes per precision "
+        f"{per}; {distinct} bytes held ({distinct / 1e9:.3f} GB), "
+        f"{sum(per.values()) - distinct} bytes shared between precisions")
+    return dict(bytes_per_precision=per, bytes_held=distinct)
 
 
 # ---------------------------------------------------------------------------
@@ -1524,7 +1682,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_lines("quant_matmul", "qmm_tc")
     check(len(ptxas) == 2, f"ptxas -v reported {len(ptxas)} qmm_tc kernels")
-    for line in ptxas:
+    ptxas_a8 = ptxas_lines("quant_matmul", "qmm_a8_wgmma")
+    # bf16 and float32 out
+    check(len(ptxas_a8) == 2,
+          f"ptxas -v reported {len(ptxas_a8)} qmm_a8_wgmma kernels")
+    for line in ptxas + ptxas_a8:
         log(f"ptxas -v, {line}")
 
     with torch.no_grad():
@@ -1545,6 +1707,11 @@ def main() -> int:
               and cfg7.vocab == 250880 and cfg7.dtype == "bfloat16",
               f"unexpected bloom-7b1 config {cfg7}")
         sl7 = slice_7b1_phase(cfg7)
+    # K2 and the W8A8 tier's eager activation quantization, timed inside
+    # one W8A8 prefill of each model
+    for name, s_ in (("quant_matmul_w8a8_tc", sl),
+                     ("quant_matmul_w8a8_tc_bloom7b1", sl7)):
+        kernels[name]["in_w8a8_prefill"] = s_["timings"]["W8A8"]["in_prefill"]
     log(f"summary: {json.dumps(sl)}")
     log(f"summary bloom-7b1: {json.dumps(sl7)}")
 

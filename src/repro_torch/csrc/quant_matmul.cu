@@ -9,8 +9,8 @@
 // q is int8 (K, N) row-major, or for W4 packed (ceil(K/2), N): packed row
 // p holds row 2p in its low nibble and row 2p+1 in its high nibble.
 //
-// Three kernels; the wrapper (kernels/quant_matmul.py, _route) picks one
-// from the shapes and types before the launch:
+// Four kernels; the wrapper (kernels/quant_matmul.py, route) picks one from
+// the shapes and types before the launch:
 //
 // qmm_skinny (+ qmm_reduce_splits), every tier at M <= 8 (decode).  Bound
 //   by the weight stream, K*N bytes (K*N/2 for W4) against 3.35 TB/s.  The
@@ -41,10 +41,32 @@
 //   epilogue multiplies by s[n] and rounds to bf16.  Every output element
 //   sums its k stages in one order whatever M is: no split-K.
 //
+// qmm_a8_wgmma, W8A8 at M > 8 (prefill) where the TMA takes the operands
+//   (K % 16 == 0, N % 16 == 0, 16-byte aligned xq and q).  Bound by the
+//   operations, 2*M*N*K against 1,979 TOPS int8, which only the int8
+//   tensor cores reach (the CUDA-core qmm_tiled ran it at under 3 % of
+//   that).  The sums must stay exact int32 (the kernel is held bitwise to
+//   its plain version, and an FFN-down row of BLOOM-7B1 reaches 2.7e8, past
+//   float32's exact 2^24), so it runs wgmma m64n128k32.s32.s8.s8.  The
+//   integer wgmma has no transpose immediates: B must be K-major in shared
+//   memory, and q is (K, N) with n contiguous.  So each stage's raw q tile
+//   (128 k rows x 128 n bytes, loaded plain by the TMA) is transposed by the
+//   consumers into a K-major tile (128 n rows x 128 k bytes, 128B-swizzled,
+//   named like the xq tile): 4x4 byte blocks by __byte_perm, 16-byte
+//   stores, no bank conflicts (a8_transpose).  No transposed copy of the
+//   weights is kept in device memory.  A 256x128 output tile per block (two
+//   warpgroups of 128 rows, two m64 accumulators of 64 int32 registers a
+//   thread each) walks K in stages of 128 over a 3-stage ring of 64 KB; the
+//   taller tile halves the weight bytes each output reads from L2, which
+//   bounded the 128x128 version.  The ring, the producer thread, the
+//   barriers and the fences are qmm_tc's.  The epilogue writes
+//   float(acc) * sx[m] * s[n] (a8_out) once per output: no split-K, so the
+//   result is bitwise equal to the plain version at every shape.
+//
 // qmm_tiled, the other M > 8 cases: float32 x (held to the CPU's tokens on
-//   reduced float32 models), shapes the TMA does not take (K % 8 or N % 16
-//   not 0, unaligned pointers), and W8A8 at prefill.  64x64 output tiles in
-//   registers (4x4 per thread) over shared-memory tiles of x and the
+//   reduced float32 models) and shapes the TMA does not take (K % 8, or for
+//   W8A8 K % 16, or N % 16 not 0, unaligned pointers).  64x64 output tiles
+//   in registers (4x4 per thread) over shared-memory tiles of x and the
 //   dequantized weights, on CUDA cores; W8A8 packs four k values per 32-bit
 //   word and accumulates with __dp4a in int32.  Integer sums are exact, so
 //   W8A8 is bitwise equal to its plain PyTorch version, including the
@@ -585,6 +607,208 @@ qmm_tc(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtens
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (W8A8 prefill): TMA -> mbarrier ring -> transpose the
+// weight tile to K-major in shared memory -> int8 wgmma, exact int32 sums.
+// Replaces _mm_kernel_w8a8 (src/repro/kernels/quant_matmul.py) at M > 8.
+// ---------------------------------------------------------------------------
+
+constexpr int A8_MT = 2;                              // m64 tiles per warpgroup
+constexpr int A8_BM = 128 * A8_MT, A8_BN = 128, A8_BK = 128;   // tile; k stage (bytes)
+constexpr int A8_STAGES = 3;
+constexpr int A8_TILE = 128 * 128;                    // 16 KB
+constexpr int A8_X_BYTES = A8_BM * A8_BK;
+// a stage: the xq tile (TMA, 128B swizzle), the K-major B tile (written by
+// the consumers), the raw q tile (TMA, plain row-major)
+constexpr int A8_STAGE_BYTES = A8_X_BYTES + 2 * A8_TILE;
+constexpr int A8_SMEM = A8_STAGES * A8_STAGE_BYTES + 2 * A8_STAGES * 8 + 1024;
+
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// d (64x128 s32) += A (64x32 s8, K-major) x B (32x128 s8, K-major).  The
+// integer form has no transpose immediates: both operands are K-major.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the K-major B tile: n row (0..127) of 128 k bytes, 16-byte chunk kc of k
+// (0..7) XOR-swizzled by n % 8 (the 128B swizzle, as the xq tile's rows)
+__device__ __forceinline__ uint32_t a8_kmajor_offset(int n, int kc) {
+  return (uint32_t)(n * 128 + ((kc ^ (n & 7)) << 4));
+}
+
+// the raw q tile as the TMA writes it: k row of 128 n bytes, plain
+__device__ __forceinline__ uint32_t a8_raw_offset(int k, int n) {
+  return (uint32_t)(k * 128 + n);
+}
+
+// one consumer thread's share of the stage's transpose: the 4 columns
+// n = 4 lane .. 4 lane + 3 over the 16 k rows of chunk kc = warp ^ (lane % 8).
+// 16 word reads (the 32 lanes read the 32 words of a row position, so 32
+// banks), a 4x4 byte transpose per 4 rows with
+// __byte_perm, and 4 16-byte writes (the kc of a quarter warp's 8 lanes
+// differ, so they cover the 8 chunk positions of the swizzled rows).
+__device__ __forceinline__ void a8_transpose(const uint8_t* raw, uint8_t* bt, int ct) {
+  const int lane = ct & 31, kc = (ct >> 5) ^ (lane & 7), n0 = 4 * lane;
+  uint32_t r[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+    r[t] = *reinterpret_cast<const uint32_t*>(raw + a8_raw_offset(16 * kc + t, n0));
+  uint32_t col[4][4];                    // col[i][j]: column n0 + i, k rows 4 j ..
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo01 = __byte_perm(r[4 * j], r[4 * j + 1], 0x5140);      // a0 b0 a1 b1
+    const uint32_t hi01 = __byte_perm(r[4 * j], r[4 * j + 1], 0x7362);      // a2 b2 a3 b3
+    const uint32_t lo23 = __byte_perm(r[4 * j + 2], r[4 * j + 3], 0x5140);  // c0 d0 c1 d1
+    const uint32_t hi23 = __byte_perm(r[4 * j + 2], r[4 * j + 3], 0x7362);  // c2 d2 c3 d3
+    col[0][j] = __byte_perm(lo01, lo23, 0x5410);                            // a0 b0 c0 d0
+    col[1][j] = __byte_perm(lo01, lo23, 0x7632);                            // a1 b1 c1 d1
+    col[2][j] = __byte_perm(hi01, hi23, 0x5410);
+    col[3][j] = __byte_perm(hi01, hi23, 0x7632);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<uint4*>(bt + a8_kmajor_offset(n0 + i, kc)) =
+        make_uint4(col[i][0], col[i][1], col[i][2], col[i][3]);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, __nv_bfloat16 a, __nv_bfloat16 b) {
+  __nv_bfloat162 v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(QT_THREADS, 1)
+qmm_a8_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap q_map,
+             const float* __restrict__ sx, const float* __restrict__ sw, TO* __restrict__ out,
+             int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + A8_STAGES * A8_STAGE_BYTES);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + A8_STAGES);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * A8_BM, n0 = blockIdx.x * A8_BN;
+  const int n_k = (K + A8_BK - 1) / A8_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < A8_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, QT_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= QT_CONSUMERS) {
+    // producer: one thread keeps the ring full
+    if (tid == QT_CONSUMERS) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % A8_STAGES;
+        mbar_wait(empty0 + 8 * s, ((kt / A8_STAGES) & 1) ^ 1);
+        uint8_t* st = ring + s * A8_STAGE_BYTES;
+        mbar_expect_tx(full0 + 8 * s, A8_X_BYTES + A8_TILE);
+        tma_load_2d(smem_u32(st), &x_map, kt * A8_BK, m0, full0 + 8 * s);
+        tma_load_2d(smem_u32(st + A8_X_BYTES + A8_TILE), &q_map, n0, kt * A8_BK,
+                    full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows m0 + 64 A8_MT wg ..
+  const int wg = tid >> 7;
+  int acc[A8_MT][64];
+#pragma unroll
+  for (int t = 0; t < A8_MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[t][i] = 0;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % A8_STAGES;
+    uint8_t* st = ring + s * A8_STAGE_BYTES;
+    mbar_wait(full0 + 8 * s, (kt / A8_STAGES) & 1);
+    a8_transpose(st + A8_X_BYTES + A8_TILE, st + A8_X_BYTES, tid);
+    // the K-major tile is read by the async proxy, and by both warpgroups
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" :: "n"(QT_NAMED_BAR), "n"(QT_CONSUMERS) : "memory");
+    const uint32_t xa = smem_u32(st) + wg * A8_MT * 64 * 128,
+                   ba = smem_u32(st + A8_X_BYTES);
+#pragma unroll
+    for (int t = 0; t < A8_MT; ++t) fence_acc(acc[t]);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < A8_BK / 32; ++j)
+#pragma unroll
+      for (int t = 0; t < A8_MT; ++t)
+        wgmma_m64n128k32_s8(acc[t], sw128_desc(xa + t * 64 * 128 + 32 * j, 16, 1024),
+                            sw128_desc(ba + 32 * j, 16, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the group before this one has completed: its stage goes back
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < A8_MT; ++t) fence_acc(acc[t]);
+    if (kt > 0) mbar_arrive(empty0 + 8 * ((kt - 1) % A8_STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+  for (int t = 0; t < A8_MT; ++t) fence_acc(acc[t]);
+
+  // epilogue, a8_out in the plain version's order; the fragment layout is
+  // qmm_tc's (register 4 c + 2 h + e: row 16 warp + lane / 4 + 8 h, column
+  // 8 c + 2 (lane % 4) + e)
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+#pragma unroll
+  for (int t = 0; t < A8_MT; ++t) {
+    const int row0 = m0 + (wg * A8_MT + t) * 64 + warp * 16 + (lane >> 2);
+    float sr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sr[h] = row0 + 8 * h < M ? sx[row0 + 8 * h] : 0.f;
+#pragma unroll
+    for (int c = 0; c < A8_BN / 8; ++c) {
+      const int col = n0 + 8 * c + 2 * (lane & 3);
+      if (col >= N) continue;               // N % 16 == 0: col + 1 < N too
+      const float s0 = sw[col], s1 = sw[col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < M)
+          store_pair(out + (size_t)row * N + col, a8_out<TO>(acc[t][4 * c + 2 * h], sr[h], s0),
+                     a8_out<TO>(acc[t][4 * c + 2 * h + 1], sr[h], s1));
+      }
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave,
@@ -636,6 +860,24 @@ int launch_tc(const void* x, const int8_t* q, const float* sw, void* out, int M,
   dim3 grid((N + QT_BN - 1) / QT_BN, (M + QT_BM - 1) / QT_BM);
   qmm_tc<MODE><<<grid, QT_THREADS, QT_SMEM, stream>>>(
       x_map, q_map, sw, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int launch_a8_tc(const void* xq, const float* sx, const int8_t* q, const float* sw, void* out,
+                 int M, int N, int K, cudaStream_t stream) {
+  alignas(64) CUtensorMap x_map, q_map;
+  if (!encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, 1, A8_BM, A8_BK,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, 1, A8_BK, A8_BN,
+                 CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const int rc = (int)cudaFuncSetAttribute(
+      qmm_a8_wgmma<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, A8_SMEM);
+  if (rc != 0) return rc;
+  dim3 grid((N + A8_BN - 1) / A8_BN, (M + A8_BM - 1) / A8_BM);
+  qmm_a8_wgmma<TO><<<grid, QT_THREADS, A8_SMEM, stream>>>(
+      x_map, q_map, sx, sw, static_cast<TO*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -705,6 +947,18 @@ int qmm_a8(const void* xq, const void* sx, const void* q, const void* sw,
   return out_bf16
       ? launch<MODE_A8, int8_t, __nv_bfloat16>(xq, sxp, qp, swp, out, partial, M, N, K, splits, k_per_split, st)
       : launch<MODE_A8, int8_t, float>(xq, sxp, qp, swp, out, partial, M, N, K, splits, k_per_split, st);
+}
+
+// W8A8 on the tensor cores (M > 8): as qmm_a8, with K % 16 == 0, N % 16 == 0
+// and xq, q 16-byte aligned (the TMA's rules).
+int qmm_a8_tc(const void* xq, const void* sx, const void* q, const void* sw, void* out,
+              int M, int N, int K, int out_bf16, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const int8_t*>(q);
+  auto sxp = static_cast<const float*>(sx);
+  auto swp = static_cast<const float*>(sw);
+  return out_bf16 ? launch_a8_tc<__nv_bfloat16>(xq, sxp, qp, swp, out, M, N, K, st)
+                  : launch_a8_tc<float>(xq, sxp, qp, swp, out, M, N, K, st);
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@ The kernels (``csrc/quant_matmul.cu``) replace the Pallas TPU kernels of
 ``repro/kernels/quant_matmul.py`` (``_mm_kernel_int8``, ``_mm_kernel_int4``,
 ``_mm_kernel_w8a8``).  ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
 launch them on CUDA tensors and count their launches in ``LAUNCHES``
-(``w8a16_tc`` / ``w4a16_tc`` count the tensor-core launches a second time,
-beside ``w8a16`` / ``w4a16``); ``route`` is the plan that picks the kernel;
+(``w8a16_tc`` / ``w4a16_tc`` / ``w8a8_tc`` count the tensor-core launches a
+second time, beside ``w8a16`` / ``w4a16`` / ``w8a8``); ``route`` is the plan
+that picks the kernel;
 ``quant_matmul_plain`` / ``quant_matmul_a8_plain`` are the same functions in
 plain PyTorch (twins of ``repro/kernels/ref.py``), which the CPU path and
 the on-card comparisons use.
@@ -24,7 +25,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.quant.ptq import unpack_int4
 
-LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0, "w8a16_tc": 0, "w4a16_tc": 0}
+LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0, "w8a16_tc": 0, "w4a16_tc": 0,
+            "w8a8_tc": 0}
 
 _SKINNY_ROWS = 8        # csrc: SK_ROWS, rows of x per skinny block
 _SKINNY_COLS = 128      # csrc: SK_BN, columns per skinny block
@@ -84,18 +86,21 @@ def _splits(M: int, N: int, K: int):
 
 def route(M: int, K: int, N: int, dtype: torch.dtype, bits: int,
           aligned: bool = True) -> str:
-    """Which kernel ``quant_matmul_cuda`` launches, from shapes and types
-    alone: "skinny" at M <= 8 (decode); "tc", the tensor-core kernel, for
-    bfloat16 x at M > 8 where the TMA can read the operands (16-byte
-    aligned bases and row strides: K % 8 == 0 for x, N % 16 == 0 for q and
-    the output); "tiled" for the rest.  ``aligned``: x and q start on a
+    """Which kernel ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
+    launches, from shapes and types alone: "skinny" at M <= 8 (decode);
+    "tc", a tensor-core kernel, at M > 8 where the TMA can read the
+    operands (16-byte aligned bases and row strides: N % 16 == 0 for q and
+    the output, and K % 8 == 0 for bfloat16 x, K % 16 == 0 for the W8A8
+    tier's int8 xq); "tiled" for the rest, float32 x among it.
+    ``dtype`` is x's type (int8 for W8A8); ``aligned``: x and q start on a
     16-byte boundary."""
     if M <= _SKINNY_ROWS:
         return "skinny"
-    if (dtype == torch.bfloat16 and bits in (4, 8) and aligned
-            and K % 8 == 0 and N % 16 == 0):
-        return "tc"
-    return "tiled"
+    if dtype == torch.int8:
+        tma = bits == 8 and K % 16 == 0
+    else:
+        tma = dtype == torch.bfloat16 and bits in (4, 8) and K % 8 == 0
+    return "tc" if tma and aligned and N % 16 == 0 else "tiled"
 
 
 def _check_cuda(name, t, dtype, shape):
@@ -157,15 +162,25 @@ def quant_matmul_a8_cuda(xq: torch.Tensor, sx: torch.Tensor, q: torch.Tensor,
     _check_cuda("sx", sx, torch.float32, (M, 1))
     _check_cuda("q", q, torch.int8, (K, N))
     _check_cuda("scale", scale, torch.float32, (N,))
-    splits, kps = _splits(M, N, K)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    lib = _build.library("quant_matmul")
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    bf16 = int(out_dtype == torch.bfloat16)
+    if route(M, K, N, torch.int8, 8,
+             xq.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0) == "tc":
+        rc = lib.qmm_a8_tc(xq.data_ptr(), sx.data_ptr(), q.data_ptr(),
+                           scale.data_ptr(), out.data_ptr(), M, N, K, bf16,
+                           stream)
+        _build.check(rc, "qmm_a8_tc")
+        LAUNCHES["w8a8"] += 1
+        LAUNCHES["w8a8_tc"] += 1
+        return out
+    splits, kps = _splits(M, N, K)
     partial = torch.empty((splits, M, N) if splits > 1 else (0,),
                           dtype=torch.int32, device=xq.device)
-    lib = _build.library("quant_matmul")
     rc = lib.qmm_a8(xq.data_ptr(), sx.data_ptr(), q.data_ptr(),
                     scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                    M, N, K, int(out_dtype == torch.bfloat16), splits, kps,
-                    torch.cuda.current_stream(xq.device).cuda_stream)
+                    M, N, K, bf16, splits, kps, stream)
     _build.check(rc, "qmm_a8")
     LAUNCHES["w8a8"] += 1
     return out

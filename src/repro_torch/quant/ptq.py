@@ -176,6 +176,19 @@ def quantize_tree(params: Params, bits: int = 8,
     return _tree_map(maybe, params)
 
 
+def with_act_bits(params: Params, act_bits: int) -> Params:
+    """A quantized tree tagged for other activation bits: each QTensor is a
+    new one over the same q, scale and kept dequantized tensor (``dense``),
+    and every other leaf is the same tensor.  It equals ``quantize_tree``
+    of the source weights at ``act_bits``, whose weights do not depend on
+    the tag, and holds no second copy of them."""
+    assert act_bits in (8, 16), act_bits
+    return _tree_map(
+        lambda _, l: QTensor(l.q, l.scale, l.bits, l.shape, l.dtype,
+                             act_bits=act_bits, _dense=l._dense)
+        if isinstance(l, QTensor) else l, params)
+
+
 def dequantize_tree(params: Params) -> Params:
     return _tree_map(
         lambda _, l: dequantize(l) if isinstance(l, QTensor) else l, params)

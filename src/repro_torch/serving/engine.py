@@ -60,7 +60,7 @@ import torch
 from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.api import Model, build_model
-from repro_torch.quant.ptq import quantize_tree
+from repro_torch.quant.ptq import QTensor, quantize_tree, with_act_bits
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
     KVArena
 
@@ -216,11 +216,27 @@ class ServingEngine:
         if bits not in self._params_cache:
             if bits == 0:
                 p = self._raw_params
+            elif isinstance(bits, int):
+                p = quantize_tree(self._raw_params, bits)
             else:
-                w, a = bits if isinstance(bits, tuple) else (bits, 16)
-                p = quantize_tree(self._raw_params, w, act_bits=a)
+                # int8 activations quantize the weights as fp ones do: the
+                # fp-activation tree's q, scales and kept embedding table,
+                # tagged, so the two precisions hold one copy between them
+                base = self.params_for(bits[0])
+                if isinstance(base.get("embed"), QTensor):
+                    base["embed"].dense()
+                p = with_act_bits(base, bits[1])
             self._params_cache[bits] = p
         return self._params_cache[bits]
+
+    def kept_tables(self) -> dict:
+        """The dequantized embedding table each cached precision keeps, by
+        precision (only those made so far); precisions that share one map
+        to the same tensor."""
+        return {bits: p["embed"]._dense
+                for bits, p in self._params_cache.items()
+                if isinstance(p.get("embed"), QTensor)
+                and p["embed"]._dense is not None}
 
     def decode_tier(self, bits=None) -> str:
         """The decode-attention tier ``use_kernel=True`` serving at

@@ -131,6 +131,69 @@ def test_quant_matmul_tensor_core_rows_invariant_and_deterministic(cuda,
                                                  bits))
 
 
+# W8A8 on the tensor cores (int8 xq, M > 8): M in {16, 129, 520, 4096}, N in
+# {272, 2560, 10240}, K in {128, 144, 2560, 10240} (144: a ragged last
+# stage), every combination, both output types, bitwise
+A8_TC_MKN = [(M, K, N) for M in (16, 129, 520, 4096)
+             for K in (128, 144, 2560, 10240) for N in (272, 2560, 10240)]
+
+
+def _a8_inputs(M, K, N, device, seed=0):
+    x, q, s = _bf16_mm_inputs(M, K, N, 8, device, seed)
+    xq, sx = tptq.quantize_rowwise(x)
+    return xq, sx, q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", A8_TC_MKN)
+def test_quant_matmul_a8_tensor_core_bitwise(cuda, mkn):
+    M, K, N = mkn
+    assert tqm.route(M, K, N, torch.int8, 8) == "tc"
+    xq, sx, q, s = _a8_inputs(M, K, N, cuda)
+    for dt in (torch.bfloat16, torch.float32):
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_a8_cuda(xq, sx, q, s, dt)
+        counts = ops.launch_counts()
+        assert counts["w8a8_tc"] == counts["w8a8"] == 1
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s, dt))
+        # and a second call, bitwise
+        assert torch.equal(got, tqm.quant_matmul_a8_cuda(xq, sx, q, s, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, N, offset of xq in elements): K % 16 != 0, N % 16 != 0, an
+    # unaligned xq
+    (129, 136, 272, 0), (520, 2568, 2560, 0), (129, 2560, 200, 0),
+    (16, 128, 40, 0), (129, 128, 272, 8)])
+def test_quant_matmul_a8_tiled_shapes_still_bitwise(cuda, case):
+    M, K, N, off = case
+    xq, sx, q, s = _a8_inputs(M, K, N, cuda, seed=6)
+    buf = torch.empty(M * K + off, dtype=torch.int8, device=cuda)
+    xo = buf[off:].view(M, K)
+    xo.copy_(xq)
+    assert tqm.route(M, K, N, torch.int8, 8, xo.data_ptr() % 16 == 0) \
+        == "tiled"
+    for dt in (torch.bfloat16, torch.float32):
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_a8_cuda(xo, sx, q, s, dt)
+        counts = ops.launch_counts()
+        assert counts["w8a8"] == 1 and counts["w8a8_tc"] == 0
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(xo, sx, q, s, dt))
+
+
+@pytest.mark.cuda
+def test_ops_w8a8_prefill_takes_the_tensor_cores(cuda):
+    x, q, s = _bf16_mm_inputs(64, 256, 512, 8, cuda, seed=7)
+    ops.reset_launch_counts()
+    got = ops.quant_matmul(x, q, s, 8, act_bits=8)
+    counts = ops.launch_counts()
+    assert counts["w8a8_tc"] == counts["w8a8"] == 1
+    xq, sx = tptq.quantize_rowwise(x)
+    assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s,
+                                                      torch.bfloat16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # (M, K, N, x dtype, bits, offset of x in elements): the plan's tiled
