@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result):
 2. Build: every ``src/repro_torch/csrc/*.cu`` is compiled with ``nvcc`` for
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
    once); what ``-Xptxas -v`` said of the tensor-core kernels (``qmm_tc``,
-   ``qmm_a8_wgmma``) is printed.
+   ``qmm_a8_wgmma``) and of the split-KV decode attention (``fd_split``,
+   ``fd_combine``) is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version and timed beside its bound, its plain version and the library
    call (or composition of calls) that computes the same function.  K1-K5
@@ -26,7 +27,10 @@ Phases (any failure exits non-zero and prints no result):
    of 80 for decode attention, over a slab and, paged, through a block
    table of 16-slot pages); the paged kernel must be bitwise equal to the
    slab kernel on the gathered slab and read the leading corner of a wider
-   (32, 128) page tail in place.  The fused int8 tier K6 (slab) and K7
+   (32, 128) page tail in place.  K4 and K5 are also checked at n_valid on
+   each side of a split boundary, their rows must be bitwise the same
+   alone, in the batch and over a wider window, and both are also timed at
+   BLOOM-7B1's 32 heads of 128.  The fused int8 tier K6 (slab) and K7
    (paged) at BLOOM-7B1's decode shape (B = 8, W = 640, 32 heads of 128,
    D = 4096, int8 weights), W8A16 and W8A8, bf16 and float32, at positions
    0, 576, 640 and 647 (the eviction slot): K7 bitwise equal to K6 on the
@@ -407,31 +411,61 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
     return max_err, tol, out
 
 
-def flash_decode_phase():
-    """K4 at BLOOM-3B's decode shape (B=8, W=640, nh=nkv=32, dh=80)."""
+def _split_edges(fd):
+    """n_valid on each side of a split boundary of K4/K5."""
+    return (fd.SPLIT - 1, fd.SPLIT, fd.SPLIT + 1)
+
+
+def _rows_invariant(run, B, what):
+    """``run(rows, wide)`` gives K4/K5's output for a subset of the rows,
+    over the shape's window or a wider one (``wide``): each row must be
+    the same bits alone, inside the batch, over the wider window and in a
+    second call."""
+    full = run(list(range(B)), False)
+    check(torch.equal(full, run(list(range(B)), False)),
+          f"{what}: two calls differ")
+    check(torch.equal(full, run(list(range(B)), True)),
+          f"{what}: rows change over a wider window")
+    for r in range(B):
+        check(torch.equal(run([r], False)[0], full[r]),
+              f"{what}: row {r} alone != row {r} in the batch")
+
+
+def flash_decode_phase(shape=ATTN, seed=2):
+    """K4 at a decode shape: BLOOM-3B's (B=8, W=640, nh=nkv=32, dh=80) or
+    BLOOM-7B1's (dh=128)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
-    B, nh, nkv, dh, W, nv = (ATTN[k] for k in ("B", "nh", "nkv", "dh", "W",
-                                               "n_valid"))
+    B, nh, nkv, dh, W, nv = (shape[k] for k in ("B", "nh", "nkv", "dh", "W",
+                                                "n_valid"))
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     max_err, f32_err = 0.0, 0.0
     q = torch.randn((B, nh, dh), generator=gen, device=dev)
     k = torch.randn((B, W, nkv, dh), generator=gen, device=dev)
     v = torch.randn((B, W, nkv, dh), generator=gen, device=dev)
     rows = torch.randint(1, W + 1, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
-    for n_valid in (nv, W, 1, rows):
+    for n_valid in (nv, W, 1, rows) + _split_edges(fd):
         g32 = fd.flash_decode_cuda(q, k, v, n_valid)
         w32 = fd.flash_decode_plain(q, k, v, n_valid)
         _assert_close(g32, w32, F32_TOL, "flash_decode f32")
         f32_err = max(f32_err, _max_err(g32, w32))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    for n_valid in (nv, W, rows):
+    for n_valid in (nv, W, rows) + _split_edges(fd):
         got = fd.flash_decode_cuda(qb, kb, vb, n_valid)
         want = fd.flash_decode_plain(qb, kb, vb, n_valid)
         _assert_close(got, want, BF16_TOL, "flash_decode bf16")
         max_err = max(max_err, _max_err(got, want))
+    # rows: alone, in the batch, over a 1024-slot cache with other values
+    # past W
+    extra = [torch.randn((B, 1024 - W, nkv, dh), generator=gen, device=dev
+                         ).to(torch.bfloat16) for _ in range(2)]
+    kw, vw = (torch.cat([t, e], 1) for t, e in zip((kb, vb), extra))
+    _rows_invariant(lambda r, wide: fd.flash_decode_cuda(
+        qb[r], *((kw[r], vw[r]) if wide else (kb[r], vb[r])),
+        rows[r].contiguous()), B, f"flash_decode {nh} x {dh}")
+    del kw, vw, extra
     n_copy = max(1, min(32, math.ceil(ROTATE_BYTES / (2 * kb.numel() * 2))))
     kvs = [(kb.clone(), vb.clone()) for _ in range(n_copy)]
     run = lambda i: fd.flash_decode_cuda(qb, *kvs[i], nv)  # noqa: E731
@@ -452,23 +486,27 @@ def flash_decode_phase():
                library_call="torch.nn.functional.scaled_dot_product_attention",
                bound_ms=b, bound_by=by)
     tol = (f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; f32 "
-           f"rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})")
+           f"rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g}); "
+           f"n_valid at split edges {_split_edges(fd)}; rows bitwise "
+           f"invariant in B and W, two calls equal")
     return max_err, tol, out
 
 
-def flash_decode_paged_phase():
-    """K5 at BLOOM-3B's decode shape through a block table: B=8, 40 blocks
-    of 16 slots (W=640), 32 heads of 80, over an arena of 162 pages."""
+def flash_decode_paged_phase(shape=ATTN, tail=PAGED["tail"], seed=3):
+    """K5 at a decode shape through a block table: B=8, 40 blocks of 16
+    slots (W=640), 32 heads of 80 (or 128), checked over an arena of 162
+    pages that the rows share and timed over one of 322 pages, each row on
+    pages of its own."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.serving.kv_arena import N_RESERVED
-    B, nh, nkv, dh, W, nv = (ATTN[k] for k in ("B", "nh", "nkv", "dh", "W",
-                                               "n_valid"))
+    B, nh, nkv, dh, W, nv = (shape[k] for k in ("B", "nh", "nkv", "dh", "W",
+                                                "n_valid"))
     bt = PAGED["bt"]
     n_b = W // bt
     P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     # each row's blocks on a random permutation of the allocatable pages
     table = torch.stack([N_RESERVED + torch.randperm(
         P - N_RESERVED, generator=gen, device=dev)[:n_b]
@@ -487,7 +525,7 @@ def flash_decode_paged_phase():
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd = (t.to(dt) for t in (q, kp, vp))
         ks, vs = gather(kd), gather(vd)
-        for n_valid in (nv, W, 1, rows):
+        for n_valid in (nv, W, 1, rows) + _split_edges(fd):
             got = fd.flash_decode_paged_cuda(qd, kd, vd, table, n_valid)
             want = fd.flash_decode_paged_plain(qd, kd, vd, table, n_valid)
             f32 = dt == torch.float32
@@ -500,9 +538,17 @@ def flash_decode_paged_phase():
             check(torch.equal(got, fd.flash_decode_cuda(qd, ks, vs, n_valid)),
                   f"flash_decode_paged {dt} n_valid={n_valid}: not bitwise "
                   f"equal to flash_decode on the gathered slab")
-    # a wider page tail, read through its leading corner in place
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
-    wide = [torch.zeros((P, bt) + PAGED["tail"], dtype=torch.bfloat16,
+    # rows: alone, in the batch, through a 64-block table (W = 1024) whose
+    # blocks past W point at other pages
+    more = N_RESERVED + torch.randint(0, P - N_RESERVED, (B, 64 - n_b),
+                                      generator=gen, device=dev)
+    table_w = torch.cat([table, more.to(torch.int32)], 1)
+    _rows_invariant(lambda r, w: fd.flash_decode_paged_cuda(
+        qb[r], kb, vb, (table_w if w else table)[r].contiguous(),
+        rows[r].contiguous()), B, f"flash_decode_paged {nh} x {dh}")
+    # a wider page tail, read through its leading corner in place
+    wide = [torch.zeros((P, bt) + tail, dtype=torch.bfloat16,
                         device=dev) for _ in range(2)]
     wide[0][..., :nkv, :dh] = kb
     wide[1][..., :nkv, :dh] = vb
@@ -510,22 +556,40 @@ def flash_decode_paged_phase():
     check(not kc.is_contiguous(), "the corner view should be strided")
     got = fd.flash_decode_paged_cuda(qb, kc, vc, table, rows)
     _assert_close(got, fd.flash_decode_paged_plain(qb, kc, vc, table, rows),
-                  BF16_TOL, "flash_decode_paged on a (32, 128)-tail corner")
+                  BF16_TOL, f"flash_decode_paged on a {tail}-tail corner")
     check(torch.equal(got, fd.flash_decode_paged_cuda(qb, kb, vb, table,
                                                       rows)),
           "flash_decode_paged on a corner view != on the contiguous pages")
     # timing: arenas rotated through > 256 MB; k and v of one arena stacked
-    # so that the yardstick gathers both in one call
-    n_copy = max(1, min(32, math.ceil(ROTATE_BYTES / (2 * kb.numel() * 2))))
-    kvs = [torch.stack([kb, vb]) for _ in range(n_copy)]
+    # so that the yardstick gathers both in one call.  The main time reads
+    # an arena where each row's blocks are pages of its own, as the
+    # engine's leases are (B * n_b pages); shared_arena_ms reads the check
+    # arena above, whose rows share pages (half of them, so part of the
+    # reads hit the L2), the way this kernel was timed before.
+    P2 = N_RESERVED + B * n_b
+    own = (N_RESERVED + torch.randperm(B * n_b, generator=gen, device=dev)
+           ).reshape(B, n_b).to(torch.int32)
+    kv2 = torch.randn((2, P2, bt, nkv, dh), generator=gen, device=dev
+                      ).to(torch.bfloat16)
+    _assert_close(fd.flash_decode_paged_cuda(qb, kv2[0], kv2[1], own, rows),
+                  fd.flash_decode_paged_plain(qb, kv2[0], kv2[1], own, rows),
+                  BF16_TOL, "flash_decode_paged on pages of each row's own")
+
+    def copies(kv):
+        n = max(1, min(32, math.ceil(ROTATE_BYTES / (kv.numel() * 2))))
+        return n, [kv.clone() for _ in range(n)]
+
+    n_copy, kvs = copies(kv2)
+    n_shared, shared = copies(torch.stack([kb, vb]))
+    ol = own.long()
     run = lambda i: fd.flash_decode_paged_cuda(  # noqa: E731
-        qb, kvs[i][0], kvs[i][1], table, nv)
+        qb, kvs[i][0], kvs[i][1], own, nv)
     plain = lambda i: fd.flash_decode_paged_plain(  # noqa: E731
-        qb, kvs[i][0], kvs[i][1], table, nv)
+        qb, kvs[i][0], kvs[i][1], own, nv)
     q4 = qb[:, :, None]                                  # (B, nh, 1, dh)
 
     def lib(i):
-        g = kvs[i][:, tl].reshape(2, B, W, nkv, dh)      # one gather
+        g = kvs[i][:, ol].reshape(2, B, W, nkv, dh)      # one gather
         return F.scaled_dot_product_attention(
             q4, g[0, :, :nv].transpose(1, 2), g[1, :, :nv].transpose(1, 2))
 
@@ -539,11 +603,16 @@ def flash_decode_paged_phase():
                library_ms=device_ms(lib, n_copy),
                library_call="page gather kv[:, table] + torch.nn.functional."
                             "scaled_dot_product_attention, timed together",
-               bound_ms=b, bound_by=by, arena_pages=P)
+               bound_ms=b, bound_by=by, arena_pages=P2,
+               shared_arena_ms=device_ms(lambda i: fd.flash_decode_paged_cuda(
+                   qb, shared[i][0], shared[i][1], table, nv), n_shared),
+               shared_arena_pages=P)
     tol = (f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; f32 "
            f"rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g}); "
-           f"bitwise == flash_decode on the gathered slab (f32 and bf16); "
-           f"(32, 128)-tail corner read in place")
+           f"n_valid at split edges {_split_edges(fd)}; bitwise == "
+           f"flash_decode on the gathered slab (f32 and bf16); rows bitwise "
+           f"invariant in B and W, two calls equal; {tail}-tail corner read "
+           f"in place")
     return max_err, tol, out
 
 
@@ -853,6 +922,16 @@ KERNELS = [
     ("flash_decode_paged", "flash_decode_paged",
      "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:403", "continuous_w8a16"),
+    # K4/K5 at BLOOM-7B1's 32 x 128 (its W16A16 and W4A16 cohorts, which
+    # the measured run's calibration and serving reach)
+    ("flash_decode_bloom7b1", "flash_decode",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:40",
+     "bloom7b1_continuous_auto_measured"),
+    ("flash_decode_paged_bloom7b1", "flash_decode_paged",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:403",
+     "bloom7b1_continuous_auto_measured"),
     ("flash_decode_fused", "flash_decode_fused",
      "src/repro_torch/csrc/flash_decode_fused.cu",
      "src/repro/kernels/flash_decode.py:182", "bloom7b1_dftsp_w8a16"),
@@ -913,16 +992,21 @@ def kernel_phase():
                         f", {ATTN7['W'] // PAGED['bt']} blocks of "
                         f"{PAGED['bt']} slots over {t['arena_pages']} pages"))
         elif counter == "flash_decode":
-            err, tol, t = flash_decode_phase()
-            shape = (f"B={ATTN['B']} W={ATTN['W']} n_valid={ATTN['n_valid']} "
-                     f"nh=nkv={ATTN['nh']} dh={ATTN['dh']} bf16, one call "
+            a, seed = (ATTN7, 12) if name.endswith("_bloom7b1") else (ATTN, 2)
+            err, tol, t = flash_decode_phase(a, seed)
+            shape = (f"B={a['B']} W={a['W']} n_valid={a['n_valid']} "
+                     f"nh=nkv={a['nh']} dh={a['dh']} bf16, one call "
                      f"(one layer of a decode step)")
         elif counter == "flash_decode_paged":
-            err, tol, t = flash_decode_paged_phase()
-            shape = (f"B={ATTN['B']} {ATTN['W'] // PAGED['bt']} blocks of "
-                     f"{PAGED['bt']} slots (W={ATTN['W']}) n_valid="
-                     f"{ATTN['n_valid']} nh=nkv={ATTN['nh']} dh={ATTN['dh']} "
-                     f"bf16 over {t['arena_pages']} pages, one call (one "
+            a, tail, seed = ((ATTN7, TAIL7, 13) if name.endswith("_bloom7b1")
+                             else (ATTN, PAGED["tail"], 3))
+            err, tol, t = flash_decode_paged_phase(a, tail, seed)
+            shape = (f"B={a['B']} {a['W'] // PAGED['bt']} blocks of "
+                     f"{PAGED['bt']} slots (W={a['W']}) n_valid="
+                     f"{a['n_valid']} nh=nkv={a['nh']} dh={a['dh']} "
+                     f"bf16, each row on pages of its own ({t['arena_pages']}"
+                     f" pages; shared_arena_ms: rows sharing "
+                     f"{t['shared_arena_pages']} pages), one call (one "
                      f"layer of a decode step)")
         else:
             err, tol, both = qmm[counter] = quant_matmul_phase(counter)
@@ -941,6 +1025,8 @@ def kernel_phase():
                f"plain_ms={t['prefill_plain_ms']:.3f} library_ms="
                f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else "")
             + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else "")
+            + (f"; shared_arena_ms={t['shared_arena_ms']:.4f}"
+               if "shared_arena_ms" in t else "")
             + (f"; cuda_core_tiled_ms={t['cuda_core_tiled_ms']:.3f}"
                if "cuda_core_tiled_ms" in t else "")
             + (f"; quantize_rowwise_ms={t['quantize_rowwise_ms']:.3f}"
@@ -1686,7 +1772,15 @@ def main() -> int:
     # bf16 and float32 out
     check(len(ptxas_a8) == 2,
           f"ptxas -v reported {len(ptxas_a8)} qmm_a8_wgmma kernels")
-    for line in ptxas + ptxas_a8:
+    # K4/K5: fd_split over {f32, bf16} x {16-byte, element loads} x {slab,
+    # paged}, and the merge fd_combine for f32 and bf16
+    ptxas_fd = ptxas_lines("flash_decode", "fd_split")
+    check(len(ptxas_fd) == 8,
+          f"ptxas -v reported {len(ptxas_fd)} fd_split kernels")
+    ptxas_fc = ptxas_lines("flash_decode", "fd_combine")
+    check(len(ptxas_fc) == 2,
+          f"ptxas -v reported {len(ptxas_fc)} fd_combine kernels")
+    for line in ptxas + ptxas_a8 + ptxas_fd + ptxas_fc:
         log(f"ptxas -v, {line}")
 
     with torch.no_grad():

@@ -86,9 +86,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "qmm_a16_tc": (P, P, P, P, I, I, I, I, P),
         "qmm_a8": (P, P, P, P, P, P, I, I, I, I, I, I, P),
         "qmm_a8_tc": (P, P, P, P, P, I, I, I, I, P),
-        "flash_decode": (P, P, P, P, I, P, I, I, I, I, I, F, I, P),
-        "flash_decode_paged": (P, P, P, P, P, I, P, I, I, I, I, I, I, L, L,
-                               L, F, I, P),
+        "flash_decode": (P, P, P, P, I, P, P, I, I, I, I, I, F, I, I, P),
+        "flash_decode_paged": (P, P, P, P, P, I, P, P, I, I, I, I, I, I, L,
+                               L, L, F, I, I, P),
         "flash_decode_fused": (P,) * 11 + (P, I, P, I) + (P,) * 6
         + (I,) * 6 + (F, F) + (I,) * 4 + (P,),
         "flash_decode_fused_paged": (P,) * 12 + (P, I, P, I) + (P,) * 6

@@ -10,6 +10,11 @@ launches in ``LAUNCHES``; ``flash_decode_plain`` is the same function in
 plain PyTorch (twin of ``repro.kernels.ref.flash_decode_ref``) and
 ``flash_decode_paged_plain`` gathers the pages into a slab and calls it
 (the twin of the JAX package's gather path, which has no paged oracle).
+One call of K4 or K5 is two launches: one block per (split, kv head, row)
+writes float32 partials (m, l, acc) of its ``SPLIT`` logical slots to a
+workspace the wrapper allocates, then a merge sums the splits below
+n_valid in index order (``split_plan``).  The grid and the workspace
+depend only on (B, nh, nkv, W, dh).
 
 q (B, nh, dh) attends over k/v (B, W, nkv, dh); slots >= n_valid (an int
 for every row, or a (B,) int32 tensor) are masked.  n_valid must be >= 1.
@@ -46,6 +51,18 @@ NEG = -1e30
 
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0,
             "flash_decode_fused": 0, "flash_decode_fused_paged": 0}
+
+# logical slots of one split of K4/K5: ``SPLIT`` of csrc/flash_decode.cu,
+# which the CPU tests hold equal to this one
+SPLIT = 64
+
+
+def split_plan(W: int):
+    """The splits K4/K5 cut a row's W slots into: [start, stop) ranges of
+    ``SPLIT`` logical slots (the last one cut at W), in the order the merge
+    sums them.  The kernels launch one block per split and size their
+    workspace by it; a split at or past a row's n_valid does nothing."""
+    return [(s, min(s + SPLIT, W)) for s in range(0, W, SPLIT)]
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,6 +211,24 @@ def _scalar_or_ptr(v: Union[int, torch.Tensor], B: int, name: str):
     return None, int(v)
 
 
+def _workspace(q: torch.Tensor, W: int) -> torch.Tensor:
+    """Float32 scratch for the split partials: (B, nh, splits, dh) sums,
+    then (B, nh, splits, 2) running max and denominator, one split for
+    each entry of ``split_plan(W)``."""
+    B, nh, dh = q.shape
+    return torch.empty(B * nh * -(-W // SPLIT) * (dh + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def _wide(dh: int, tensors, strides, elt: int) -> int:
+    """1 where every K/V row can be read in 16-byte pieces: d_head a
+    multiple of 8 (the kernels' chunk), 16-byte aligned bases and strides.
+    Otherwise the same kernel reads element by element; the sums are the
+    same either way."""
+    return int(dh % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+               and all(s * elt % 16 == 0 for s in strides))
+
+
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
     _check_q(q)
@@ -210,10 +245,13 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
     out = torch.empty_like(q)
+    ws = _workspace(q, W)
     lib = _build.library("flash_decode")
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv_ptr,
-                          nv_scalar, out.data_ptr(), B, nh, nkv, W, dh,
-                          1.0 / dh ** 0.5, int(q.dtype == torch.bfloat16),
+                          nv_scalar, out.data_ptr(), ws.data_ptr(), B, nh,
+                          nkv, W, dh, 1.0 / dh ** 0.5,
+                          int(q.dtype == torch.bfloat16),
+                          _wide(dh, (k, v), (dh,), q.element_size()),
                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
@@ -252,13 +290,15 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     n_b = table.shape[1]
     nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
     out = torch.empty_like(q)
+    ws = _workspace(q, n_b * bt)
     lib = _build.library("flash_decode")
     ps, ss, hs = k_pages.stride()[:3]
     rc = lib.flash_decode_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), nv_ptr, nv_scalar, out.data_ptr(), B, nh, nkv,
-        n_b, bt, dh, ps, ss, hs, 1.0 / dh ** 0.5,
+        table.data_ptr(), nv_ptr, nv_scalar, out.data_ptr(), ws.data_ptr(),
+        B, nh, nkv, n_b, bt, dh, ps, ss, hs, 1.0 / dh ** 0.5,
         int(q.dtype == torch.bfloat16),
+        _wide(dh, (k_pages, v_pages), (ps, ss, hs), q.element_size()),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode_paged")
     LAUNCHES["flash_decode_paged"] += 1

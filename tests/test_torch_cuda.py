@@ -300,6 +300,70 @@ def test_flash_decode_paged_reads_a_wider_tail_in_place(cuda):
         q, kp.contiguous(), vp.contiguous(), table, nv))
 
 
+def _split_nv(W, B, rng):
+    """n_valid at the split boundaries, the whole window, and ragged."""
+    S = tfd.SPLIT
+    ragged = torch.from_numpy(rng.integers(1, W + 1, size=(B,)).astype(
+        np.int32))
+    return [1, S - 1, S, S + 1, W, ragged]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 12])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_flash_decode_split_kv_vs_plain_and_paged_bitwise(cuda, G, dh):
+    """K4 and K5 against their plain versions at every GQA group the
+    configs use (BLOOM 1; 2 and 4; deepseek-coder-33b 7, mistral-large 12)
+    and n_valid on each side of a split boundary; K5 bitwise equal to K4
+    on the gathered slab for 8-, 16- and 32-slot pages."""
+    B, nkv, W = 3, 2, 384
+    rng = np.random.default_rng(G * 1000 + dh)
+    for bt in (8, 16, 32):
+        q, kp, vp, table, _ = _paged_inputs(B, G * nkv, nkv, dh, W // bt,
+                                            bt, cuda, seed=bt)
+        ks, vs = _gathered(kp, table), _gathered(vp, table)
+        for n_valid in _split_nv(W, B, rng):
+            if isinstance(n_valid, torch.Tensor):
+                n_valid = n_valid.to(cuda)
+            for dt, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)),
+                            (torch.bfloat16, BF16_TOL)):
+                qd, kd, vd, ksd, vsd = (t.to(dt) for t in (q, kp, vp, ks, vs))
+                got4 = tfd.flash_decode_cuda(qd, ksd, vsd, n_valid)
+                torch.testing.assert_close(
+                    got4, tfd.flash_decode_plain(qd, ksd, vsd, n_valid), **tol)
+                got5 = tfd.flash_decode_paged_cuda(qd, kd, vd, table, n_valid)
+                torch.testing.assert_close(
+                    got5, tfd.flash_decode_paged_plain(qd, kd, vd, table,
+                                                       n_valid), **tol)
+                assert torch.equal(got5, got4), (bt, n_valid, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,dh", [(1, 80), (4, 128), (7, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_rows_invariant_and_deterministic(cuda, G, dh, dtype):
+    """A row's output is a function of its own q, slots and n_valid: the
+    same bits computed alone (B = 1), inside B = 8, and over a wider cache
+    (W = 1024 holding the same first 640 slots); two calls agree."""
+    B, nkv, W, W2 = 8, 2, 640, 1024
+    q, k, v, _ = _decode_inputs(B, G * nkv, nkv, dh, W2, cuda, seed=G)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    rng = np.random.default_rng(dh)
+    nv = torch.from_numpy(rng.integers(1, W + 1, size=(B,)).astype(
+        np.int32)).to(cuda)
+    nv[:4] = torch.tensor([1, tfd.SPLIT, tfd.SPLIT + 1, W], dtype=torch.int32)
+    ks, vs = k[:, :W].contiguous(), v[:, :W].contiguous()
+    full = tfd.flash_decode_cuda(q, ks, vs, nv)
+    assert torch.equal(full, tfd.flash_decode_cuda(q, ks, vs, nv))
+    assert torch.equal(full, tfd.flash_decode_cuda(q, k, v, nv))
+    for r in range(B):
+        alone = tfd.flash_decode_cuda(q[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+                                      nv[r:r + 1].clone())
+        assert torch.equal(alone[0], full[r]), r
+        assert torch.equal(alone[0], tfd.flash_decode_cuda(
+            q[r:r + 1], ks[r:r + 1], vs[r:r + 1], int(nv[r]))[0]), r
+
+
 @pytest.mark.cuda
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     x, q, s = _mm_inputs(4, 128, 64, 8, cuda)
