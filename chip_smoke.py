@@ -4,6 +4,12 @@
 Run from the root of a checkout, with nothing built beforehand:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent build/parent   # and time the parent's
+
+``--parent`` names a checkout of the parent commit (``git archive`` into a
+directory that ``.gitignore`` lists): its quantized matmuls' decode calls
+are then timed by that tree in a process of its own, in the same run on the
+same card, beside this tree's.
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -12,7 +18,8 @@ Phases (any failure exits non-zero and prints no result):
 2. Build: every ``src/repro_torch/csrc/*.cu`` is compiled with ``nvcc`` for
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
    once); what ``-Xptxas -v`` said of the tensor-core kernels (``qmm_tc``,
-   ``qmm_a8_wgmma``) and of the split-KV decode attention (``fd_split``,
+   ``qmm_a8_wgmma``), of the W8A8 GEMV (``qmm_a8_gemv``, which must not
+   spill) and of the split-KV decode attention (``fd_split``,
    ``fd_combine``) is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version and timed beside its bound, its plain version and the library
@@ -22,7 +29,9 @@ Phases (any failure exits non-zero and prints no result):
    the tensor-core kernels, also at BLOOM-7B1's prefill layer, held bitwise
    row-invariant in M and deterministic (K2 bitwise equal to its plain
    version), and timed beside the CUDA-core kernel they replaced; the W8A8
-   tier's eager ``quantize_rowwise`` is timed at the same shapes; B = 8,
+   tier's eager ``quantize_rowwise`` is timed at the same shapes; at decode
+   each of the layer's six calls is timed apart, K2 (the W8A8 GEMV) also at
+   BLOOM-7B1's layer, its rows bitwise the same at M = 1 and M = 8; B = 8,
    W = 640, 32 heads
    of 80 for decode attention, over a slab and, paged, through a block
    table of 16-slot pages); the paged kernel must be bitwise equal to the
@@ -53,7 +62,10 @@ Phases (any failure exits non-zero and prints no result):
    window must launch no tensor-core kernel.  ``generate`` must equal
    ``generate_reference`` at each quantized precision.  One W8A8 prefill
    (here and at BLOOM-7B1) runs with CUDA events around each call of
-   ``quantize_rowwise`` and of K2: their time and share inside the prefill.
+   ``quantize_rowwise`` and of K2: their time and share inside the prefill;
+   one W8A8 decode step, captured as a CUDA graph with the same events,
+   gives their device time and share inside the step.  Every W8A8 call at
+   M <= 8 must have run the GEMV (its counter ``w8a8_gemv``).
 6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
    + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
    pages (``dftsp``, chunk k = 16), counted on its own: the paged decode
@@ -82,6 +94,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -235,12 +248,71 @@ def _tiled_a8(xq, sx, q, s):
     M, K = xq.shape
     N = s.numel()
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    part = torch.empty((0,), dtype=torch.int32, device=xq.device)
     rc = _build.library("quant_matmul").qmm_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
-        out.data_ptr(), part.data_ptr(), M, N, K, 1, 1, K,
+        out.data_ptr(), M, N, K, 1, 0, 1, K,
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "qmm_a8")
+    return out
+
+
+def decode_call_ms(tier: str, layer=LAYER_MATMULS, seed: int = 21):
+    """Device ms of each of a layer's quantized matmuls at decode (M = 8,
+    bf16 x and out), one by one: K1 (w8a16), K2 (w8a8, on ``quantize_rowwise``
+    of x) or K3 (w4a16), weights rotated through copies that outsize the
+    L2.  Inputs come from ``seed`` alone, so a parent tree given the same
+    arguments (``parent_decode_call_ms``) times the same work."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.quant import ptq
+    bits = 4 if tier == "w4a16" else 8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, K, N in layer:
+        w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+        t = ptq.quantize(w, bits)
+        q, s = t.q, t.scale.reshape(-1)
+        xb = torch.randn((DECODE_M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        n_copy = max(1, min(64, math.ceil(ROTATE_BYTES / q.numel())))
+        qs = [q.clone() for _ in range(n_copy)]
+        if tier == "w8a8":
+            xq, sx = ptq.quantize_rowwise(xb)
+            run = lambda i: qm.quant_matmul_a8_cuda(  # noqa: E731
+                xq, sx, qs[i], s, torch.bfloat16)
+        else:
+            run = lambda i: qm.quant_matmul_cuda(xb, qs[i], s, bits)  # noqa
+        out[name] = device_ms(run, n_copy)
+        del qs
+    return out
+
+
+def parent_decode_call_ms(parent: Path):
+    """``decode_call_ms`` of every quantized tier at BLOOM-3B's layer, and of
+    K2 at BLOOM-7B1's, run by the checkout ``parent`` (its own kernels,
+    built into ``parent/build``) in a process of its own on this card."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(parent / 'src')!r})\n"
+        f"sys.path.insert(1, {str(ROOT)!r})\n"
+        "import torch\n"
+        "import chip_smoke as cs\n"
+        "import repro_torch\n"
+        "from repro_torch.kernels import _build\n"
+        "_build.build_all()\n"
+        "with torch.no_grad():\n"
+        "    out = {t: cs.decode_call_ms(t) for t in ('w8a16', 'w8a8', 'w4a16')}\n"
+        "    out['w8a8_bloom7b1'] = cs.decode_call_ms('w8a8', cs.LAYER_MATMULS_7B1)\n"
+        "out['tree'] = repro_torch.__file__\n"
+        "print(json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900)
+    check(r.returncode == 0, f"the parent tree {parent} failed:\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    check(out["tree"].startswith(str(parent.resolve())),
+          f"the parent run imported {out['tree']}, not {parent}")
+    log(f"parent tree {parent}: decode calls (ms) {json.dumps(out)}")
     return out
 
 
@@ -250,10 +322,13 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
     by default).  At prefill all three run a tensor-core kernel: its rows
     must not depend on M (rows of the M = 4096 call equal the same rows of
     M = 512 and M = 136 calls) and two calls must be bitwise equal; K2 is
-    bitwise equal to its plain version at every phase.  At prefill the
-    CUDA-core tiled kernel is timed on the same work, and for K2 also the
-    eager ``quantize_rowwise`` of its x (over copies of x that outsize the
-    L2, as the weights are at decode)."""
+    bitwise equal to its plain version at every phase, and at decode (the
+    GEMV) its rows do not depend on M (each row of the M = 8 call equals
+    the same row computed alone).  At decode each call of the layer is
+    timed apart (``decode_call_ms``).  At prefill the CUDA-core tiled
+    kernel is timed on the same work, and for K2 also the eager
+    ``quantize_rowwise`` of its x (over copies of x that outsize the L2, as
+    the weights are at decode)."""
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.quant import ptq
     bits = 4 if tier == "w4a16" else 8
@@ -291,6 +366,13 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
                 check(torch.equal(got, want),
                       f"w8a8 M={M} K={K} N={N}: not bitwise equal to the "
                       f"plain version (max err {_max_err(got, want)})")
+                if not tc:
+                    for r in range(M):
+                        check(torch.equal(got[r], qm.quant_matmul_a8_cuda(
+                            xq[r:r + 1].contiguous(), sx[r:r + 1].contiguous(),
+                            q, s, torch.bfloat16)[0]),
+                              f"w8a8 GEMV K={K} N={N}: row {r} of M={M} != "
+                              f"the same row at M=1")
                 if tc:
                     for dt in (torch.float32, torch.bfloat16):
                         g = qm.quant_matmul_a8_cuda(xq, sx, q, s, dt)
@@ -347,7 +429,8 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
             n_rot, n_rot_dense = (n_copy, n_dense) if phase == "decode" \
                 else (1, 1)
             a = acc[phase]
-            a["ms"] += count * device_ms(run, n_rot)
+            if tc:                            # decode: decode_call_ms
+                a["ms"] += count * device_ms(run, n_rot)
             a["plain"] += count * device_ms(plain, n_rot)
             a["lib_bf16"] += count * device_ms(lib, n_rot_dense)
             if tc and tier == "w8a8":
@@ -381,6 +464,9 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
         del qs, qts, wds
     out = {}
     for phase, a in acc.items():
+        if phase == "decode":
+            calls = decode_call_ms(tier, layer)
+            a["ms"] = sum(calls.values())
         b, by = bound_ms(a["nb"], a["no"], "int8" if tier == "w8a8"
                          else "bf16")
         if a["lib_int8"] is None:
@@ -391,6 +477,8 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
                                            "scales")
         out[phase] = dict(ms=a["ms"], plain_ms=a["plain"], library_ms=lib_ms,
                           library_call=call, bound_ms=b, bound_by=by)
+        if phase == "decode":
+            out[phase]["calls_ms"] = calls
         if a["lib_int8"] is not None:
             out[phase]["library_bf16_ms"] = a["lib_bf16"]
         if a["tiled"] is not None:
@@ -400,7 +488,8 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
                 # the W8A8 tier's eager activation quantization of the
                 # layer's six inputs, outside the kernel
                 out[phase]["quantize_rowwise_ms"] = a["qrow"]
-    tol = ("bitwise" if tier == "w8a8" else
+    tol = ("bitwise; decode: rows of M=8 bitwise == the same rows at M=1"
+           if tier == "w8a8" else
            f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; "
            f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})") \
         + ("" if "prefill" not in acc else
@@ -917,6 +1006,12 @@ KERNELS = [
      "src/repro_torch/csrc/quant_matmul.cu",
      "src/repro/kernels/quant_matmul.py:97",
      "bloom7b1_continuous_auto_measured"),
+    # the W8A8 GEMV (K2 at decode) at BLOOM-7B1's layer, whose FFN runs it
+    # beside K6; BLOOM-3B's is the decode half of quant_matmul_w8a8
+    ("quant_matmul_w8a8_gemv_bloom7b1", "w8a8_gemv",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:97",
+     "bloom7b1_continuous_auto_measured"),
     ("flash_decode", "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:40", "dftsp_w8a16"),
     ("flash_decode_paged", "flash_decode_paged",
@@ -961,12 +1056,25 @@ def ptxas_lines(source: str, kernel: str):
     return out
 
 
-def kernel_phase():
+def kernel_phase(parent=None):
+    """Every kernel of KERNELS against its plain version, timed; with
+    ``parent`` (a checkout of the parent commit), the quantized matmuls'
+    decode calls are timed by that tree too, in this run on this card."""
     results, qmm = {}, {}
     fused = fused_phase()
     torch.cuda.empty_cache()
+    parent_ms = parent_decode_call_ms(parent) if parent else {}
     for name, counter, *_ in KERNELS:
-        if name.endswith("_tc_bloom7b1"):
+        if name.endswith("_gemv_bloom7b1"):
+            err, tol, both = quant_matmul_phase(
+                "w8a8", LAYER_MATMULS_7B1, (("decode", DECODE_M),))
+            t = dict(both["decode"])
+            shape = (f"one BLOOM-7B1 decode layer on the W8A8 GEMV: 4 x "
+                     f"(K=N=4096) + (4096->16384) + (16384->4096), "
+                     f"M={DECODE_M}, {_operands(counter)}")
+            if parent_ms:
+                t["parent_calls_ms"] = parent_ms["w8a8_bloom7b1"]
+        elif name.endswith("_tc_bloom7b1"):
             err, tol, both = quant_matmul_phase(
                 counter[:-3], LAYER_MATMULS_7B1, (("prefill", PREFILL_M),))
             t = both["prefill"]
@@ -1011,11 +1119,15 @@ def kernel_phase():
         else:
             err, tol, both = qmm[counter] = quant_matmul_phase(counter)
             t = dict(both["decode"])
+            if parent_ms:
+                t["parent_calls_ms"] = parent_ms[counter]
             t.update({f"prefill_{k}": v for k, v in both["prefill"].items()})
             shape = (f"one BLOOM-3B layer: 4 x (K=N=2560) + (2560->10240) + "
                      f"(10240->2560), M={DECODE_M} decode "
                      f"(prefill_*: M={PREFILL_M}, tensor cores), "
                      f"{_operands(counter)}")
+        if "parent_calls_ms" in t:
+            t["parent_ms"] = sum(t["parent_calls_ms"].values())
         results[name] = dict(max_abs_err=err, tolerance=tol, shape=shape, **t)
         log(f"{name}: max_abs_err={err:.4g} ({tol}); ms={t['ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
@@ -1030,7 +1142,12 @@ def kernel_phase():
             + (f"; cuda_core_tiled_ms={t['cuda_core_tiled_ms']:.3f}"
                if "cuda_core_tiled_ms" in t else "")
             + (f"; quantize_rowwise_ms={t['quantize_rowwise_ms']:.3f}"
-               if "quantize_rowwise_ms" in t else ""))
+               if "quantize_rowwise_ms" in t else "")
+            + (f"; calls_ms={json.dumps(t['calls_ms'])}"
+               if "calls_ms" in t else "")
+            + (f"; parent_ms={t['parent_ms']:.4f} parent_calls_ms="
+               f"{json.dumps(t['parent_calls_ms'])}"
+               if "parent_ms" in t else ""))
     return results
 
 
@@ -1101,6 +1218,54 @@ def small_reference_phase(arch="bloom-3b", n_heads=4,
         f"bits {list(paged_bits)}")
 
 
+class _W8A8Spans:
+    """While active, CUDA events around each call of the W8A8 tier's
+    activation quantization (``ops.quantize_rowwise``) and of K2
+    (``quant_matmul_a8_cuda``).  ``external`` events are also recorded as
+    nodes when the calls are captured into a CUDA graph."""
+
+    def __init__(self, external: bool = False):
+        self.external = external
+        self.spans = {"quantize_rowwise": [], "kernel": []}
+
+    def event(self):
+        return torch.cuda.Event(enable_timing=True, external=self.external)
+
+    def _timed(self, fn, key):
+        def call(*args, **kw):
+            ev = (self.event(), self.event())
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            self.spans[key].append(ev)
+            return out
+        return call
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quant_matmul as qm
+        self._saved = ops.quantize_rowwise, qm.quant_matmul_a8_cuda
+        ops.quantize_rowwise = self._timed(self._saved[0], "quantize_rowwise")
+        qm.quant_matmul_a8_cuda = self._timed(self._saved[1], "kernel")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quant_matmul as qm
+        ops.quantize_rowwise, qm.quant_matmul_a8_cuda = self._saved
+
+    def summary(self, total_ms: float, engine, what: str):
+        out = {f"{what}_span_ms": total_ms}
+        for key, evs in self.spans.items():
+            ms = sum(a.elapsed_time(b) for a, b in evs)
+            out.update({f"{key}_calls": len(evs), f"{key}_ms": ms,
+                        f"{key}_share": ms / total_ms})
+        check(out["kernel_calls"] > 0 and out["quantize_rowwise_calls"]
+              == out["kernel_calls"],
+              f"{engine.cfg.arch_id}: W8A8 {what} breakdown saw {out}")
+        return out
+
+
 def w8a8_prefill_breakdown(engine, params, tokens):
     """One W8A8 prefill with CUDA events around the whole call and around
     each call of its activation quantization (``ops.quantize_rowwise``) and
@@ -1108,48 +1273,51 @@ def w8a8_prefill_breakdown(engine, params, tokens):
     itself.  An event pair spans what the stream ran between its two
     records, so a host gap inside a call would count too; the prefill's
     span is reported beside the sum."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import quant_matmul as qm
-    spans = {"quantize_rowwise": [], "kernel": []}
-
-    def timed(fn, key):
-        def call(*args, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*args, **kw)
-            ev[1].record()
-            spans[key].append(ev)
-            return out
-        return call
-
-    quantize, kernel = ops.quantize_rowwise, qm.quant_matmul_a8_cuda
-    ops.quantize_rowwise = timed(quantize, "quantize_rowwise")
-    qm.quant_matmul_a8_cuda = timed(kernel, "kernel")
-    try:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _W8A8Spans() as sp:
         torch.cuda.synchronize()
         start.record()
         engine._prefill(params, tokens)
         end.record()
         torch.cuda.synchronize()
-    finally:
-        ops.quantize_rowwise, qm.quant_matmul_a8_cuda = quantize, kernel
     total = start.elapsed_time(end)
-    out = dict(prefill_span_ms=total)
-    for key, evs in spans.items():
-        ms = sum(a.elapsed_time(b) for a, b in evs)
-        out.update({f"{key}_calls": len(evs), f"{key}_ms": ms,
-                    f"{key}_share": ms / total})
-    check(out["kernel_calls"] > 0 and out["quantize_rowwise_calls"]
-          == out["kernel_calls"],
-          f"{engine.cfg.arch_id}: W8A8 prefill breakdown saw {out}")
+    out = sp.summary(total, engine, "prefill")
     log(f"{engine.cfg.arch_id} W8A8 prefill (M={tokens.numel()}), timed in "
         f"place: span {total:.1f} ms; quantize_rowwise "
         f"{out['quantize_rowwise_ms']:.1f} ms over "
         f"{out['quantize_rowwise_calls']} calls (share "
         f"{out['quantize_rowwise_share']:.3f}); K2 {out['kernel_ms']:.1f} ms "
+        f"over {out['kernel_calls']} calls (share {out['kernel_share']:.3f})")
+    return out
+
+
+def w8a8_decode_breakdown(engine, params, cache, cur):
+    """One W8A8 decode step (the full batch at the first decode position),
+    captured into a CUDA graph with CUDA events around the step and around
+    each call of ``quantize_rowwise`` and of K2, and replayed: the device
+    time of each inside the step's device work, with no host gap between
+    the kernels (the eager step is host-bound), and its share.  The event
+    nodes lengthen the graph, so the step's device time without them
+    (``device_ms``) is reported beside the span."""
+    step_ms = device_ms(lambda i: engine._decode(params, cache, cur, 0))
+    graph = torch.cuda.CUDAGraph()
+    with _W8A8Spans(external=True) as sp:
+        start, end = sp.event(), sp.event()
+        with torch.cuda.graph(graph):
+            start.record()
+            engine._decode(params, cache, cur, 0)
+            end.record()
+    graph.replay()
+    torch.cuda.synchronize()
+    total = start.elapsed_time(end)
+    out = dict(sp.summary(total, engine, "step"), step_device_ms=step_ms)
+    log(f"{engine.cfg.arch_id} W8A8 decode step (B={cur.shape[0]}), device "
+        f"work timed in place: {total:.3f} ms with the events ({step_ms:.3f} "
+        f"ms without); quantize_rowwise "
+        f"{out['quantize_rowwise_ms']:.3f} ms over "
+        f"{out['quantize_rowwise_calls']} calls (share "
+        f"{out['quantize_rowwise_share']:.3f}); K2 {out['kernel_ms']:.3f} ms "
         f"over {out['kernel_calls']} calls (share {out['kernel_share']:.3f})")
     return out
 
@@ -1168,23 +1336,28 @@ def _timed(fn):
 MAIN_PATHS = [
     ("dftsp_w8a16", "W8A16", "dftsp", 8,
      ("w8a16", "w8a16_tc", "flash_decode"),
-     ("w8a8", "w8a8_tc", "w4a16", "w4a16_tc")),
+     ("w8a8", "w8a8_tc", "w8a8_gemv", "w4a16", "w4a16_tc")),
     ("dftsp_auto_split", "W8A16", "dftsp:quant=auto,split=true", 8,
-     ("w8a8", "w8a8_tc", "flash_decode"), ()),
+     ("w8a8", "w8a8_tc", "w8a8_gemv", "flash_decode"), ()),
     ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4,
      ("w4a16", "w4a16_tc", "flash_decode"),
-     ("w8a16", "w8a16_tc", "w8a8", "w8a8_tc")),
+     ("w8a16", "w8a16_tc", "w8a8", "w8a8_tc", "w8a8_gemv")),
 ]
 
 
 def check_prefill_on_tensor_cores(counts, label):
     """A run that served W8A16, W4A16 or W8A8 prefilled at M > 8, which the
-    plan sends to a tensor-core kernel: its count must have moved."""
+    plan sends to a tensor-core kernel: its count must have moved.  At
+    BLOOM's shapes every other W8A8 call is a decode call (M <= 8), and
+    each of those must have run the GEMV."""
     for c in ("w8a16", "w4a16", "w8a8"):
         if counts[c] > 0:
             check(counts[c + "_tc"] > 0,
                   f"{label}: {c} launched {counts[c]} times but never on "
                   f"the tensor cores (launches {counts})")
+    check(counts["w8a8_gemv"] == counts["w8a8"] - counts["w8a8_tc"],
+          f"{label}: W8A8 decode calls that missed the GEMV (launches "
+          f"{counts})")
 
 
 def epoch_path(engine, label, method, spec, launched, idle, rate: float,
@@ -1439,7 +1612,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         check(counts["w8a16_tc"] == counts["w4a16_tc"]
               == counts["w8a8_tc"] == 0
               and counts[{"W8A16": "w8a16", "W8A8": "w8a8", "W4A16": "w4a16",
-                          "BF16": "flash_decode"}[label]] > 0,
+                          "BF16": "flash_decode"}[label]] > 0
+              and counts["w8a8_gemv"] == counts["w8a8"],
               f"slice: {label}: decode-only window launched {counts}")
         # the same step with no host work between its kernels
         dev_ms = device_ms(lambda i: engine._decode(params, cache,
@@ -1453,6 +1627,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         if label == "W8A8":
             timings[label]["in_prefill"] = w8a8_prefill_breakdown(
                 engine, params, tokens)
+            timings[label]["in_decode"] = w8a8_decode_breakdown(
+                engine, params, cache, cur)
         log(f"slice: {label}: prefill (M={batch * s_max}) {pre_ms:.1f} ms; "
             f"decode step {step_ms:.2f} ms eager, {dev_ms:.2f} ms of device "
             f"work (idle share {1.0 - dev_ms / step_ms:.3f}); generate of "
@@ -1565,12 +1741,17 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False):
           and not calls.get("w8a8_tc"),
           f"{engine.cfg.arch_id} {label}: a decode step launched the "
           f"tensor-core prefill kernel: {calls}")
+    check(calls.get("w8a8_gemv", 0) == calls.get("w8a8", 0)
+          and (bits != (8, 8) or calls.get("w8a8_gemv", 0) > 0),
+          f"{engine.cfg.arch_id} {label}: W8A8 decode calls that missed the "
+          f"GEMV: {calls}")
     out = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
                decode_device_ms_per_step=dev_ms,
                decode_idle_share=1.0 - dev_ms / step_ms,
                kernel_calls_per_step=calls, aten_ops_per_step=n_ops.n)
     if bits == (8, 8) and not unfused:
         out["in_prefill"] = w8a8_prefill_breakdown(engine, params, tokens)
+        out["in_decode"] = w8a8_decode_breakdown(engine, params, cache, cur)
     log(f"{engine.cfg.arch_id} {label}: prefill (M="
         f"{len(prompts) * engine.s_max}) {pre_ms:.1f} ms; decode step "
         f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
@@ -1691,7 +1872,7 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
         ("flash_decode_fused", "w8a16", "w8a16_tc"),
         slab_decode + ("flash_decode_fused_paged", "w8a8", "w8a8_tc",
-                       "w4a16", "w4a16_tc"), rate,
+                       "w8a8_gemv", "w4a16", "w4a16_tc"), rate,
         n_epochs)}
     prompts, caps = _prompts(cfg, batch, s_max, n_max)
     for bits in (8, (8, 8)):
@@ -1740,6 +1921,12 @@ def kept_tables(engine):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit (git archive): its "
+                    "quantized matmuls' decode calls are timed in this run, "
+                    "beside this tree's")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         log(f"FAILED: no src/repro_torch beside {Path(__file__).name}; run "
             f"it from a checkout of the repository")
@@ -1774,17 +1961,23 @@ def main() -> int:
           f"ptxas -v reported {len(ptxas_a8)} qmm_a8_wgmma kernels")
     # K4/K5: fd_split over {f32, bf16} x {16-byte, element loads} x {slab,
     # paged}, and the merge fd_combine for f32 and bf16
+    # the W8A8 GEMV: {bf16, f32} out x {16-byte, byte} loads
+    ptxas_gv = ptxas_lines("quant_matmul", "qmm_a8_gemv")
+    check(len(ptxas_gv) == 4,
+          f"ptxas -v reported {len(ptxas_gv)} qmm_a8_gemv kernels")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
+              for line in ptxas_gv), f"qmm_a8_gemv spills: {ptxas_gv}")
     ptxas_fd = ptxas_lines("flash_decode", "fd_split")
     check(len(ptxas_fd) == 8,
           f"ptxas -v reported {len(ptxas_fd)} fd_split kernels")
     ptxas_fc = ptxas_lines("flash_decode", "fd_combine")
     check(len(ptxas_fc) == 2,
           f"ptxas -v reported {len(ptxas_fc)} fd_combine kernels")
-    for line in ptxas + ptxas_a8 + ptxas_fd + ptxas_fc:
+    for line in ptxas + ptxas_a8 + ptxas_gv + ptxas_fd + ptxas_fc:
         log(f"ptxas -v, {line}")
 
     with torch.no_grad():
-        kernels = kernel_phase()
+        kernels = kernel_phase(args.parent)
         small_reference_phase()
         small_reference_phase("bloom-7b1", n_heads=2, bits_list=(8, (8, 8)),
                               paged_bits=(8, (8, 8)), tier="fused")
@@ -1806,6 +1999,10 @@ def main() -> int:
     for name, s_ in (("quant_matmul_w8a8_tc", sl),
                      ("quant_matmul_w8a8_tc_bloom7b1", sl7)):
         kernels[name]["in_w8a8_prefill"] = s_["timings"]["W8A8"]["in_prefill"]
+    # the GEMV and quantize_rowwise inside one W8A8 decode step of each
+    for name, s_ in (("quant_matmul_w8a8", sl),
+                     ("quant_matmul_w8a8_gemv_bloom7b1", sl7)):
+        kernels[name]["in_w8a8_decode"] = s_["timings"]["W8A8"]["in_decode"]
     log(f"summary: {json.dumps(sl)}")
     log(f"summary bloom-7b1: {json.dumps(sl7)}")
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time full-width BLOOM-3B's W8A16 decode step, over the slab and over the
-paged arena, for several checkouts in turns on one NVIDIA GPU, so that two
-versions of the port are compared inside one run on one card.
+paged arena (and with ``--w8a8`` its W8A8 step), for several checkouts in
+turns on one NVIDIA GPU, so that two versions of the port are compared
+inside one run on one card.
 
 Run from the root of a checkout:
 
     python3 scripts/decode_step_ab.py --trees build/parent,.,.,build/parent
+    python3 scripts/decode_step_ab.py --w8a8 --trees build/parent,.,.,build/parent
 
 Each entry runs in a process of its own with ``<tree>/src`` first on the
 path (its kernels are built into ``<tree>/build``).  It builds BLOOM-3B at
@@ -17,8 +19,12 @@ replay (device work), at the first decode position over the slab and at
 position 576 over an arena of 16-slot pages; then the host time of one
 decode-attention call over the slab and over the arena (the median and
 least of 21 rounds of 50 calls enqueued on an idle card; the host clock
-stops before the synchronize).  Prints one JSON line per entry and a
-table at the end.
+stops before the synchronize).  With ``--w8a8`` it also times the W8A8 step
+at the first decode position over the slab the same ways, its device work
+split in place between ``quantize_rowwise`` and K2
+(``chip_smoke.w8a8_decode_breakdown``), each of K2's six calls of a layer at
+decode (``chip_smoke.decode_call_ms``), and the host time of one K2 call at
+the wq shape.  Prints one JSON line per entry and a table at the end.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def eager_ms(fn, n: int = 31):
     return sorted(times)[n // 2], min(times)
 
 
-def one(tree: Path) -> dict:
+def one(tree: Path, w8a8: bool = False) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
     import torch
@@ -118,6 +124,7 @@ def one(tree: Path) -> dict:
             host_us[name] = sorted(rounds)[len(rounds) // 2]
             host_us[name + "_least"] = min(rounds)
         engine.release_all(st)
+        a8 = w8a8_step(engine, prompts, host_us) if w8a8 else None
     return dict(tree=str(tree), step_ms=slab["decode_ms_per_step"],
                 step_median_ms=slab_eager[0], step_least_ms=slab_eager[1],
                 step_device_ms=slab["decode_device_ms_per_step"],
@@ -125,17 +132,70 @@ def one(tree: Path) -> dict:
                 paged_step_median_ms=paged_eager[0],
                 paged_step_least_ms=paged_eager[1],
                 paged_step_device_ms=paged_dev,
-                host_us_per_call=host_us,
+                host_us_per_call=host_us, w8a8=a8,
                 device=torch.cuda.get_device_name(0))
+
+
+def w8a8_step(engine, prompts, host_us):
+    """The W8A8 decode step at the first position over the slab: eager (mean
+    of 8 after 2 warm-up steps; median and least of 31), device work, its
+    in-place split between quantize_rowwise and K2, K2's six decode calls of
+    a layer one by one, and (into ``host_us``) the host time of one K2
+    call."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.quant import ptq
+    bits = (8, 8)
+    params = engine.params_for(bits)
+    host = engine._prepare(prompts, [engine.n_max] * len(prompts), bits)[1]
+    cur, cache = engine._prefill(params, host[:, :engine.s_max].to("cuda"))
+
+    def steps(n=8):
+        c = cur
+        for t in range(n):
+            c, _ = engine._decode(params, cache, c, t)
+
+    steps(2)
+    _, step_ms = cs._timed(steps)
+    median, least = eager_ms(lambda: engine._decode(params, cache, cur, 0))
+    dev = cs.device_ms(lambda i: engine._decode(params, cache, cur, 0))
+    in_decode = cs.w8a8_decode_breakdown(engine, params, cache, cur)
+    del cache
+    calls = cs.decode_call_ms("w8a8")
+    K = N = engine.cfg.d_model
+    x = torch.randn((cs.DECODE_M, K), device="cuda").to(torch.bfloat16)
+    xq, sx = ptq.quantize_rowwise(x)
+    q = torch.zeros((K, N), dtype=torch.int8, device="cuda")
+    s = torch.ones((N,), device="cuda")
+    call = lambda: qm.quant_matmul_a8_cuda(xq, sx, q, s, torch.bfloat16)  # noqa
+    call()
+    rounds = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        rounds.append((time.perf_counter() - t0) * 1e6 / 50)
+    torch.cuda.synchronize()
+    host_us["w8a8_decode_call"] = sorted(rounds)[len(rounds) // 2]
+    host_us["w8a8_decode_call_least"] = min(rounds)
+    return dict(step_ms=step_ms / 8, step_median_ms=median,
+                step_least_ms=least, step_device_ms=dev, in_decode=in_decode,
+                k2_calls_ms=calls, k2_layer_ms=sum(calls.values()))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", help="comma-separated checkouts, in turns")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="also time the W8A8 step and K2's decode calls")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(Path(args.one).resolve())), flush=True)
+        print(json.dumps(one(Path(args.one).resolve(), args.w8a8)),
+              flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -143,7 +203,8 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     rows = []
     for tree in args.trees.split(","):
-        out = subprocess.run([sys.executable, __file__, "--one", tree],
+        out = subprocess.run([sys.executable, __file__, "--one", tree]
+                             + (["--w8a8"] if args.w8a8 else []),
                              capture_output=True, text=True)
         if out.returncode:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
@@ -160,6 +221,14 @@ def main() -> int:
               f"{r['paged_step_least_ms']:.2f}), "
               f"{r['paged_step_device_ms']:.3f} ms device; one call "
               f"{r['host_us_per_call']}")
+        if r["w8a8"]:
+            a = r["w8a8"]
+            print(f"    W8A8 step {a['step_ms']:.2f} ms eager (median "
+                  f"{a['step_median_ms']:.2f}, least {a['step_least_ms']:.2f})"
+                  f", {a['step_device_ms']:.3f} ms device (in place: "
+                  f"quantize_rowwise {a['in_decode']['quantize_rowwise_ms']:.3f}"
+                  f", K2 {a['in_decode']['kernel_ms']:.3f}); K2 decode layer "
+                  f"{a['k2_layer_ms']:.4f} ms {a['k2_calls_ms']}")
     return 0
 
 

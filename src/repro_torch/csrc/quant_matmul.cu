@@ -9,17 +9,41 @@
 // q is int8 (K, N) row-major, or for W4 packed (ceil(K/2), N): packed row
 // p holds row 2p in its low nibble and row 2p+1 in its high nibble.
 //
-// Four kernels; the wrapper (kernels/quant_matmul.py, route) picks one from
+// Five kernels; the wrapper (kernels/quant_matmul.py, route) picks one from
 // the shapes and types before the launch:
 //
-// qmm_skinny (+ qmm_reduce_splits), every tier at M <= 8 (decode).  Bound
-//   by the weight stream, K*N bytes (K*N/2 for W4) against 3.35 TB/s.  The
-//   weights go from device memory straight to registers, each warp reading
-//   whole 32-byte sectors of a weight row for four column groups at once,
-//   and are dequantized in registers; x sits in shared memory and is
+// qmm_skinny (+ qmm_reduce_splits), W8A16 and W4A16 at M <= 8 (decode).
+//   Bound by the weight stream, K*N bytes (K*N/2 for W4) against 3.35 TB/s.
+//   The weights go from device memory straight to registers, each warp
+//   reading whole 32-byte sectors of a weight row for four column groups at
+//   once, and are dequantized in registers; x sits in shared memory and is
 //   broadcast.  To fill all SMs at small N the K axis is split across
 //   blocks; a second kernel adds the partial sums in a fixed order, so the
 //   result does not depend on scheduling.
+//
+// qmm_a8_gemv, W8A8 at M <= 8 (decode); replaces _mm_kernel_w8a8 there.
+//   Bound by the bytes, K*N + M*K + 4*(M + N) + 2*M*N (bf16 out) against
+//   3.35 TB/s: the int8 weights are nearly all of it.  Each lane reads the
+//   weights straight from device memory in 16-byte pieces (16 columns of
+//   one k row), 4 k rows a step, with GV_DEPTH steps in flight per warp, so
+//   a warp streams 128 columns x 16 k rows a step in full 128-byte lines.
+//   A 4x4 byte transpose in registers (__byte_perm) turns the 4 rows into
+//   16 words of 4 k values of one column: the A operand of the int8
+//   mma.sync m16n8k16 (W^T, 16 columns x 16 k), whose B operand is xq^T (16
+//   k x the 8 rows of x, one 32-bit word of xq a lane; rows >= M are zero).
+//   That is 8 mma a step where __dp4a would take 128, so the arithmetic
+//   stays far below the byte bound.  Sums are exact int32, so K may be cut
+//   anywhere: blocks split K (gemv_a8_plan, from the shapes alone), and the
+//   splits of one column tile form one thread-block cluster.  Each block
+//   sums its warps in shared memory, then the cluster reduce-scatters the
+//   tile through distributed shared memory: each block receives every
+//   split's sums for its share of the tile, behind one cluster barrier, and
+//   writes float(acc) * sx[m] * sw[n] once.  One launch, no workspace, and
+//   the result bitwise equal to the plain version (each row independent of
+//   M) whatever the plan.  Shapes 16-byte loads cannot read (N % 16, K % 4,
+//   unaligned bases) take the byte-load instantiation of the same kernel.
+//   What bounds it at BLOOM's decode shapes: about 4 us of fixed cost a
+//   call (launch, the first loads' latency, the merge) beside the stream.
 //
 // qmm_tc, W8A16 and W4A16 with bfloat16 x at M > 8 (prefill).  Bound by
 //   the operations, 2*M*N*K against 989 TFLOP/s bf16, which only the tensor
@@ -74,9 +98,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -126,14 +149,14 @@ constexpr int SK_COLS = 4;     // column groups of 32 per lane
 constexpr int SK_BN = 32 * SK_COLS;
 constexpr int SK_KC = 256;     // k values of x staged per pass (even)
 
-// XT: element type of x (float / bf16 for A16, int8 for A8); TO: output.
+// XT: element type of x (float / bf16); TO: output.
 template <int MODE, typename XT, typename TO>
 __global__ void __launch_bounds__(SK_WARPS * 32)
 qmm_skinny(const XT* __restrict__ x, const float* __restrict__ sx,
            const int8_t* __restrict__ q, const float* __restrict__ sw,
            TO* __restrict__ out, void* __restrict__ partial,
            int M, int N, int K, int k_per_split) {
-  using Acc = typename std::conditional<MODE == MODE_A8, int, float>::type;
+  using Acc = float;
   __shared__ Acc xs[SK_ROWS][SK_KC + 1];
   __shared__ Acc red[SK_WARPS][SK_ROWS][SK_BN];
 
@@ -148,7 +171,7 @@ qmm_skinny(const XT* __restrict__ x, const float* __restrict__ sx,
 #pragma unroll
   for (int j = 0; j < SK_COLS; ++j) {
     const int n = n0 + j * 32 + lane;
-    s[j] = (MODE != MODE_A8 && n < N) ? sw[n] : 0.f;
+    s[j] = n < N ? sw[n] : 0.f;
 #pragma unroll
     for (int r = 0; r < SK_ROWS; ++r) acc[r][j] = 0;
   }
@@ -158,10 +181,7 @@ qmm_skinny(const XT* __restrict__ x, const float* __restrict__ sx,
     for (int i = tid; i < SK_ROWS * SK_KC; i += SK_WARPS * 32) {
       const int r = i / SK_KC, c = i % SK_KC, gm = m0 + r;
       Acc v = 0;
-      if (gm < M && c < kc) {
-        if constexpr (MODE == MODE_A8) v = (Acc)x[(size_t)gm * K + k0 + c];
-        else v = (Acc)to_f32(x[(size_t)gm * K + k0 + c]);
-      }
+      if (gm < M && c < kc) v = (Acc)to_f32(x[(size_t)gm * K + k0 + c]);
       xs[r][c] = v;
     }
     if (tid < SK_ROWS) xs[tid][SK_KC] = 0;
@@ -200,14 +220,9 @@ qmm_skinny(const XT* __restrict__ x, const float* __restrict__ sx,
         }
 #pragma unroll
         for (int j = 0; j < SK_COLS; ++j) {
-          if (MODE == MODE_A8) {
+          const float w = (float)b[j] * s[j];
 #pragma unroll
-            for (int r = 0; r < SK_ROWS; ++r) acc[r][j] += xs[r][c] * (Acc)b[j];
-          } else {
-            const float w = (float)b[j] * s[j];
-#pragma unroll
-            for (int r = 0; r < SK_ROWS; ++r) acc[r][j] = fmaf(xs[r][c], w, acc[r][j]);
-          }
+          for (int r = 0; r < SK_ROWS; ++r) acc[r][j] = fmaf(xs[r][c], w, acc[r][j]);
         }
       }
     }
@@ -227,8 +242,6 @@ qmm_skinny(const XT* __restrict__ x, const float* __restrict__ sx,
     for (int w = 0; w < SK_WARPS; ++w) sum += red[w][r][c];   // fixed order
     if (gridDim.y > 1) {
       static_cast<Acc*>(partial)[((size_t)blockIdx.y * M + gm) * N + gn] = sum;
-    } else if (MODE == MODE_A8) {
-      out[(size_t)gm * N + gn] = a8_out<TO>((int)sum, sx[gm], sw[gn]);
     } else {
       out[(size_t)gm * N + gn] = from_f32<TO>((float)sum);
     }
@@ -241,15 +254,188 @@ __global__ void qmm_reduce_splits(const void* __restrict__ partial,
                                   const float* __restrict__ sx,
                                   const float* __restrict__ sw,
                                   TO* __restrict__ out, int M, int N, int splits) {
-  using Acc = typename std::conditional<MODE == MODE_A8, int, float>::type;
+  using Acc = float;
   const size_t MN = (size_t)M * N;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
        i += (size_t)gridDim.x * blockDim.x) {
     const Acc* p = static_cast<const Acc*>(partial);
     Acc sum = 0;
     for (int s = 0; s < splits; ++s) sum += p[s * MN + i];
-    if (MODE == MODE_A8) out[i] = a8_out<TO>((int)sum, sx[i / N], sw[i % N]);
-    else out[i] = from_f32<TO>((float)sum);
+    out[i] = from_f32<TO>((float)sum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// W8A8 GEMV (M <= 8): 16-byte weight loads, 4x4 byte transposes, int8
+// mma.sync; the K splits of a column tile merged inside a cluster
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int GV_ROWS = 8;         // rows of xq: the mma's n
+constexpr int GV_WARPS = 4;        // warps of a block, all on one column tile
+constexpr int GV_BN = 128;         // columns of a tile: 8 lane groups x 16
+constexpr int GV_KSTEP = 16;       // k rows of a warp step: 4 lanes x 4 rows
+constexpr int GV_DEPTH = 2;        // warp steps in flight per warp
+constexpr int GV_MAX_SPLITS = 8;   // blocks of a cluster (the portable limit)
+
+// a 16-byte piece of the weight stream, read once: not kept in L1
+__device__ __forceinline__ uint4 ldg_stream(const int8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// rows a, b, c, d (4 columns of k rows k .. k + 3) -> col[i]: the 4 k
+// values of column i, row k in the low byte
+__device__ __forceinline__ void gv_transpose(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                             uint32_t* col) {
+  const uint32_t lo01 = __byte_perm(a, b, 0x5140);     // a0 b0 a1 b1
+  const uint32_t hi01 = __byte_perm(a, b, 0x7362);     // a2 b2 a3 b3
+  const uint32_t lo23 = __byte_perm(c, d, 0x5140);
+  const uint32_t hi23 = __byte_perm(c, d, 0x7362);
+  col[0] = __byte_perm(lo01, lo23, 0x5410);            // a0 b0 c0 d0
+  col[1] = __byte_perm(lo01, lo23, 0x7632);
+  col[2] = __byte_perm(hi01, hi23, 0x5410);
+  col[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// d (16x8 s32) += a (16x16 s8, row-major) x b (16x8 s8, column-major).
+// Lane (g, t) = (lane / 4, lane % 4) holds a0 = A[g][4t ..], a1 = A[g + 8][4t ..],
+// b = B[4t ..][g], d = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}
+__device__ __forceinline__ void mma_s8_16816(int* d, uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]) : "r"(a0), "r"(a1), "r"(b));
+}
+
+// one lane's share of a warp step: q rows k0 .. k0 + 3 (k0 = 4 t past the
+// step's first row) of columns n .. n + 15; rows at or past ke (the split's
+// end) and columns past N read as zero
+template <bool WIDE>
+__device__ __forceinline__ void gv_load_q(const int8_t* __restrict__ q, int N, int ke, int k0,
+                                          int n, uint4* w) {
+  if (WIDE) {
+    // N % 16 == 0, K % 4 == 0 and ke % 4 == 0: a piece is all in or all out
+    const bool in = k0 < ke && n < N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = in ? ldg_stream(q + (size_t)(k0 + i) * N + n) : make_uint4(0, 0, 0, 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t v[4] = {0, 0, 0, 0};
+      if (k0 + i < ke) {
+        const int8_t* row = q + (size_t)(k0 + i) * N;
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (n + c < N) v[c >> 2] |= (uint32_t)(uint8_t)row[n + c] << (8 * (c & 3));
+      }
+      w[i] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// and its word of xq: xq[g][k0 .. k0 + 3], zero for rows g >= M
+template <bool WIDE>
+__device__ __forceinline__ uint32_t gv_load_x(const int8_t* __restrict__ xq, int M, int K, int ke,
+                                              int k0, int g) {
+  if (WIDE)
+    return (g < M && k0 < ke) ? __ldg(reinterpret_cast<const unsigned*>(xq + (size_t)g * K + k0))
+                              : 0u;
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (g < M && k0 + i < ke) x |= (uint32_t)(uint8_t)xq[(size_t)g * K + k0 + i] << (8 * i);
+  return x;
+}
+
+// grid (column tiles, splits), cluster (1, splits): block (x, y) sums
+// k in [y k_per_split, min(K, (y + 1) k_per_split)) for columns
+// 128 x .. 128 x + 127, and the cluster's blocks write the tile out together
+template <typename TO, bool WIDE>
+__global__ void __launch_bounds__(GV_WARPS * 32)
+qmm_a8_gemv(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+            const int8_t* __restrict__ q, const float* __restrict__ sw, TO* __restrict__ out,
+            int M, int N, int K, int k_per_split) {
+  __shared__ int part[GV_WARPS][32 * 32];         // each warp's sums, [register][lane]
+  __shared__ int recv[32 * 32 + GV_MAX_SPLITS];   // every split's sums of this block's share
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * GV_BN, n = n0 + 16 * g;
+  const int kb = blockIdx.y * k_per_split, ke = min(K, kb + k_per_split);
+  const int steps = (ke - kb + GV_KSTEP - 1) / GV_KSTEP;
+
+  // acc[p]: D of mma p, columns n + 2 p (D rows g) and n + 2 p + 1 (g + 8)
+  int acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[p][r] = 0;
+
+  // the warp takes the block's steps warp, warp + GV_WARPS, ..., with
+  // GV_DEPTH of them loading while one is summed
+  uint4 w[GV_DEPTH][4];
+  uint32_t xw[GV_DEPTH];
+#pragma unroll
+  for (int d = 0; d < GV_DEPTH; ++d)
+    gv_load_q<WIDE>(q, N, ke, kb + (warp + d * GV_WARPS) * GV_KSTEP + 4 * t, n, w[d]);
+#pragma unroll
+  for (int d = 0; d < GV_DEPTH; ++d)
+    xw[d] = gv_load_x<WIDE>(xq, M, K, ke, kb + (warp + d * GV_WARPS) * GV_KSTEP + 4 * t, g);
+  for (int j0 = warp; j0 < steps; j0 += GV_DEPTH * GV_WARPS) {
+#pragma unroll
+    for (int d = 0; d < GV_DEPTH; ++d) {
+      uint32_t col[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        gv_transpose(word_of(w[d][0], i), word_of(w[d][1], i), word_of(w[d][2], i),
+                     word_of(w[d][3], i), col + 4 * i);
+#pragma unroll
+      for (int p = 0; p < 8; ++p) mma_s8_16816(acc[p], col[2 * p], col[2 * p + 1], xw[d]);
+      const int k0 = kb + (j0 + (d + GV_DEPTH) * GV_WARPS) * GV_KSTEP + 4 * t;
+      gv_load_q<WIDE>(q, N, ke, k0, n, w[d]);
+      xw[d] = gv_load_x<WIDE>(xq, M, K, ke, k0, g);
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) part[warp][(4 * p + r) * 32 + lane] = acc[p][r];
+  __syncthreads();
+  // reduce-scatter over the cluster: block b owns the tile's elements
+  // [b chunk, (b + 1) chunk) and receives every block's sums over its warps
+  // for them; after one cluster barrier no block reads another's shared
+  // memory, so each adds what it received, writes out and may exit.
+  // Element e is register e / 32 of lane e % 32: p = e / 128, r = e / 32 % 4,
+  // (g, t) = (e / 4 % 8, e % 4) -> row 2 t + r % 2, column 16 g + 2 p + r / 2.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int chunk = (32 * 32 + splits - 1) / splits;
+  for (int e = tid; e < 32 * 32; e += GV_WARPS * 32) {
+    int s = 0;
+#pragma unroll
+    for (int v = 0; v < GV_WARPS; ++v) s += part[v][e];
+    cluster.map_shared_rank(recv, e / chunk)[rank * chunk + e % chunk] = s;
+  }
+  cluster.sync();
+  const int e0 = rank * chunk, e1 = min(32 * 32, e0 + chunk);
+  for (int e = e0 + tid; e < e1; e += GV_WARPS * 32) {
+    const int r = (e >> 5) & 3;
+    const int m = 2 * (e & 3) + (r & 1);
+    const int c = n0 + 16 * ((e >> 2) & 7) + 2 * (e >> 7) + (r >> 1);
+    if (m >= M || c >= N) continue;
+    int s = 0;
+#pragma unroll
+    for (int b = 0; b < GV_MAX_SPLITS; ++b)
+      if (b < splits) s += recv[b * chunk + e - e0];
+    out[(size_t)m * N + c] = a8_out<TO>(s, sx[m], sw[c]);
   }
 }
 
@@ -903,6 +1089,29 @@ int launch(const void* x, const float* sx, const int8_t* q, const float* sw,
   return (int)cudaGetLastError();
 }
 
+template <typename TO, bool WIDE>
+int launch_a8_gemv(const int8_t* xq, const float* sx, const int8_t* q, const float* sw, void* out,
+                   int M, int N, int K, int splits, int k_per_split, cudaStream_t stream) {
+  if (splits < 1 || splits > GV_MAX_SPLITS || k_per_split % GV_KSTEP != 0 ||
+      (long long)splits * k_per_split < K)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, splits);
+  cfg.blockDim = dim3(GV_WARPS * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_a8_gemv<TO, WIDE>, xq, sx, q, sw,
+                                           static_cast<TO*>(out), M, N, K, k_per_split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -936,17 +1145,33 @@ int qmm_a16_tc(const void* x, const void* q, const void* scale, void* out,
 }
 
 // W8A8: xq int8 (M, K) with row scales sx (M,) float32; out float32
-// (out_bf16 = 0) or bfloat16 (1).  ``partial`` is (splits, M, N) int32.
+// (out_bf16 = 0) or bfloat16 (1).  M <= 8: qmm_a8_gemv over ``splits``
+// blocks of k_per_split (a multiple of GV_KSTEP) per column tile, 16-byte
+// loads where ``wide`` (N % 16 == 0, K % 4 == 0, q 16-byte and xq 4-byte
+// aligned); M > 8: the tiled kernel.
 int qmm_a8(const void* xq, const void* sx, const void* q, const void* sw,
-           void* out, void* partial, int M, int N, int K, int out_bf16,
+           void* out, int M, int N, int K, int out_bf16, int wide,
            int splits, int k_per_split, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const int8_t*>(xq);
   auto qp = static_cast<const int8_t*>(q);
   auto sxp = static_cast<const float*>(sx);
   auto swp = static_cast<const float*>(sw);
-  return out_bf16
-      ? launch<MODE_A8, int8_t, __nv_bfloat16>(xq, sxp, qp, swp, out, partial, M, N, K, splits, k_per_split, st)
-      : launch<MODE_A8, int8_t, float>(xq, sxp, qp, swp, out, partial, M, N, K, splits, k_per_split, st);
+  if (M <= GV_ROWS) {
+    if (out_bf16)
+      return wide ? launch_a8_gemv<__nv_bfloat16, true>(xp, sxp, qp, swp, out, M, N, K, splits, k_per_split, st)
+                  : launch_a8_gemv<__nv_bfloat16, false>(xp, sxp, qp, swp, out, M, N, K, splits, k_per_split, st);
+    return wide ? launch_a8_gemv<float, true>(xp, sxp, qp, swp, out, M, N, K, splits, k_per_split, st)
+                : launch_a8_gemv<float, false>(xp, sxp, qp, swp, out, M, N, K, splits, k_per_split, st);
+  }
+  dim3 grid((N + TL_BN - 1) / TL_BN, (M + TL_BM - 1) / TL_BM);
+  if (out_bf16)
+    qmm_tiled<MODE_A8, int8_t, __nv_bfloat16><<<grid, TL_THREADS, 0, st>>>(
+        xp, sxp, qp, swp, static_cast<__nv_bfloat16*>(out), M, N, K);
+  else
+    qmm_tiled<MODE_A8, int8_t, float><<<grid, TL_THREADS, 0, st>>>(
+        xp, sxp, qp, swp, static_cast<float*>(out), M, N, K);
+  return (int)cudaGetLastError();
 }
 
 // W8A8 on the tensor cores (M > 8): as qmm_a8, with K % 16 == 0, N % 16 == 0

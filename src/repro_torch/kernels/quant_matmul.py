@@ -5,9 +5,10 @@ The kernels (``csrc/quant_matmul.cu``) replace the Pallas TPU kernels of
 ``repro/kernels/quant_matmul.py`` (``_mm_kernel_int8``, ``_mm_kernel_int4``,
 ``_mm_kernel_w8a8``).  ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
 launch them on CUDA tensors and count their launches in ``LAUNCHES``
-(``w8a16_tc`` / ``w4a16_tc`` / ``w8a8_tc`` count the tensor-core launches a
-second time, beside ``w8a16`` / ``w4a16`` / ``w8a8``); ``route`` is the plan
-that picks the kernel;
+(``w8a16_tc`` / ``w4a16_tc`` / ``w8a8_tc`` count the tensor-core launches,
+and ``w8a8_gemv`` the W8A8 GEMV's at M <= 8, a second time, beside
+``w8a16`` / ``w4a16`` / ``w8a8``); ``route`` is the plan that picks the
+kernel, ``gemv_a8_plan`` the W8A8 GEMV's grid and split of K;
 ``quant_matmul_plain`` / ``quant_matmul_a8_plain`` are the same functions in
 plain PyTorch (twins of ``repro/kernels/ref.py``), which the CPU path and
 the on-card comparisons use.
@@ -19,6 +20,8 @@ scale (N,) float32.  The W8A8 tier takes x already quantized per row
 from __future__ import annotations
 
 import math
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,12 +29,19 @@ from repro_torch.kernels import _build
 from repro_torch.quant.ptq import unpack_int4
 
 LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0, "w8a16_tc": 0, "w4a16_tc": 0,
-            "w8a8_tc": 0}
+            "w8a8_tc": 0, "w8a8_gemv": 0}
 
 _SKINNY_ROWS = 8        # csrc: SK_ROWS, rows of x per skinny block
 _SKINNY_COLS = 128      # csrc: SK_BN, columns per skinny block
 _SPLIT_QUANTUM = 256    # csrc: SK_KC, k values staged per pass
 _TARGET_BLOCKS = 264    # two blocks for each of the H100's 132 SMs
+
+# the W8A8 GEMV (qmm_a8_gemv), constants of csrc/quant_matmul.cu, which the
+# CPU tests hold equal to these
+GV_WARPS = 4            # GV_WARPS, warps of a block
+GV_BN = 128             # GV_BN, columns of a block: 8 lane groups x 16
+GV_KSTEP = 16           # GV_KSTEP, k rows of a warp step: 4 lanes x 4 rows
+GV_MAX_SPLITS = 8       # GV_MAX_SPLITS, blocks of a cluster
 
 
 # ---------------------------------------------------------------------------
@@ -84,10 +94,43 @@ def _splits(M: int, N: int, K: int):
     return math.ceil(K / kps), kps
 
 
+class GemvPlan(NamedTuple):
+    grid: Tuple[int, int]       # (column tiles, splits); a cluster is (1, splits)
+    k_per_split: int            # split s sums k in [s kps, min(K, (s + 1) kps))
+    workspace_bytes: int        # device scratch the launch needs
+
+
+@lru_cache(maxsize=None)
+def gemv_a8_plan(M: int, N: int, K: int) -> GemvPlan:
+    """Grid and split of K of the W8A8 GEMV (M <= 8), from the shapes
+    alone: enough blocks to cover the SMs twice, at most a cluster's
+    ``GV_MAX_SPLITS`` splits of a column tile, each a multiple of
+    ``GV_KSTEP`` k rows and at least one warp step for each of the block's
+    warps.  The splits of a tile merge inside their cluster: no workspace."""
+    if M > _SKINNY_ROWS:
+        raise ValueError(f"the W8A8 GEMV takes M <= {_SKINNY_ROWS}, got {M}")
+    tiles = -(-N // GV_BN)
+    steps = -(-K // GV_KSTEP)
+    want = max(1, min(GV_MAX_SPLITS, -(-_TARGET_BLOCKS // max(tiles, 1)),
+                      -(-steps // GV_WARPS)))
+    kps = max(1, -(-steps // want)) * GV_KSTEP
+    return GemvPlan((tiles, max(1, -(-K // kps))), kps, 0)
+
+
+def gemv_wide(xq: torch.Tensor, q: torch.Tensor) -> bool:
+    """Whether the GEMV can read q in 16-byte pieces and xq in 4-byte
+    words: N % 16 == 0, K % 4 == 0, q 16-byte and xq 4-byte aligned.  The
+    others take its byte-load instantiation, bitwise the same."""
+    K, N = q.shape
+    return (N % 16 == 0 and K % 4 == 0 and q.data_ptr() % 16 == 0
+            and xq.data_ptr() % 4 == 0)
+
+
 def route(M: int, K: int, N: int, dtype: torch.dtype, bits: int,
           aligned: bool = True) -> str:
     """Which kernel ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
-    launches, from shapes and types alone: "skinny" at M <= 8 (decode);
+    launches, from shapes and types alone: "skinny" at M <= 8 (decode:
+    ``qmm_skinny``, or ``qmm_a8_gemv`` for int8 xq);
     "tc", a tensor-core kernel, at M > 8 where the TMA can read the
     operands (16-byte aligned bases and row strides: N % 16 == 0 for q and
     the output, and K % 8 == 0 for bfloat16 x, K % 16 == 0 for the W8A8
@@ -175,12 +218,17 @@ def quant_matmul_a8_cuda(xq: torch.Tensor, sx: torch.Tensor, q: torch.Tensor,
         LAUNCHES["w8a8"] += 1
         LAUNCHES["w8a8_tc"] += 1
         return out
-    splits, kps = _splits(M, N, K)
-    partial = torch.empty((splits, M, N) if splits > 1 else (0,),
-                          dtype=torch.int32, device=xq.device)
+    # M <= 8: the GEMV, over the plan's splits of K; else the tiled kernel
+    gemv = M <= _SKINNY_ROWS
+    if gemv:
+        plan = gemv_a8_plan(M, N, K)
+        split = (int(gemv_wide(xq, q)), plan.grid[1], plan.k_per_split)
+    else:
+        split = (0, 1, K)
     rc = lib.qmm_a8(xq.data_ptr(), sx.data_ptr(), q.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                    M, N, K, bf16, splits, kps, stream)
-    _build.check(rc, "qmm_a8")
+                    scale.data_ptr(), out.data_ptr(), M, N, K, bf16, *split,
+                    stream)
+    _build.check(rc, "qmm_a8_gemv" if gemv else "qmm_a8")
     LAUNCHES["w8a8"] += 1
+    LAUNCHES["w8a8_gemv"] += gemv
     return out

@@ -194,6 +194,107 @@ def test_ops_w8a8_prefill_takes_the_tensor_cores(cuda):
                                                       torch.bfloat16))
 
 
+# the W8A8 GEMV (qmm_a8_gemv, M <= 8): BLOOM-3B's and BLOOM-7B1's decode
+# shapes (K, N), and ragged ones its byte-load instantiation takes (N % 16
+# != 0, K % 4 != 0); (256, 96) takes 16-byte loads over two splits
+GEMV_KN = [(2560, 2560), (2560, 10240), (10240, 2560), (4096, 4096),
+           (4096, 16384), (16384, 4096), (80, 200), (64, 33), (256, 96),
+           (83, 96), (33, 64)]
+
+
+def _gemv_inputs(M, K, N, device, seed=0):
+    """int8 weights over the full range (-128 included), positive scales,
+    and xq, sx from ``quantize_rowwise`` of a bf16 x."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-128, 128, size=(K, N), dtype=np.int8))
+    s = torch.from_numpy((rng.random(N) * 0.01 + 1e-3).astype(np.float32))
+    xq, sx = tptq.quantize_rowwise(x.to(torch.bfloat16).to(device))
+    return xq, sx, q.to(device), s.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", GEMV_KN)
+@pytest.mark.parametrize("M", [1, 2, 3, 7, 8])
+def test_quant_matmul_a8_gemv_bitwise(cuda, M, kn):
+    K, N = kn
+    xq, sx, q, s = _gemv_inputs(M, K, N, cuda, seed=K + N + M)
+    assert tqm.gemv_wide(xq, q) == (N % 16 == 0 and K % 4 == 0)
+    for dt in (torch.bfloat16, torch.float32):
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_a8_cuda(xq, sx, q, s, dt)
+        counts = ops.launch_counts()
+        assert counts["w8a8_gemv"] == counts["w8a8"] == 1
+        assert counts["w8a8_tc"] == 0
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", [(2560, 2560), (256, 96)])
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (4, 16), (3, 5)])
+def test_quant_matmul_a8_gemv_unaligned_bases(cuda, kn, offsets):
+    """xq and q sliced to start off a 16-byte boundary: the byte-load
+    instantiation where 16-byte pieces or 4-byte words cannot be read,
+    bitwise equal all the same."""
+    K, N = kn
+    off_x, off_q = offsets
+    xq, sx, q, s = _gemv_inputs(8, K, N, cuda, seed=11)
+    bx = torch.empty(8 * K + off_x, dtype=torch.int8, device=cuda)
+    xo = bx[off_x:].view(8, K)
+    xo.copy_(xq)
+    bq = torch.empty(K * N + off_q, dtype=torch.int8, device=cuda)
+    qo = bq[off_q:].view(K, N)
+    qo.copy_(q)
+    assert tqm.gemv_wide(xo, qo) == (off_x % 4 == 0 and off_q % 16 == 0)
+    for dt in (torch.bfloat16, torch.float32):
+        got = tqm.quant_matmul_a8_cuda(xo, sx, qo, s, dt)
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", [(2560, 2560), (10240, 2560), (4096, 16384),
+                                (80, 200)])
+def test_quant_matmul_a8_gemv_rows_invariant_and_deterministic(cuda, kn):
+    """Row r of an M = 8 call equals the same row computed alone; two
+    calls are equal, and so are an eager call and a CUDA-graph replay."""
+    K, N = kn
+    xq, sx, q, s = _gemv_inputs(8, K, N, cuda, seed=5)
+    full = tqm.quant_matmul_a8_cuda(xq, sx, q, s, torch.float32)
+    assert torch.equal(full, tqm.quant_matmul_a8_cuda(xq, sx, q, s,
+                                                      torch.float32))
+    for r in range(8):
+        alone = tqm.quant_matmul_a8_cuda(xq[r:r + 1].contiguous(),
+                                         sx[r:r + 1].contiguous(), q, s,
+                                         torch.float32)
+        assert torch.equal(alone[0], full[r]), r
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tqm.quant_matmul_a8_cuda(xq, sx, q, s, torch.float32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tqm.quant_matmul_a8_cuda(xq, sx, q, s, torch.float32)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, full)
+
+
+@pytest.mark.cuda
+def test_w8a8_gemv_counts_every_call_at_m_le_8(cuda):
+    for M in (1, 4, 8, 9, 16):
+        xq, sx, q, s = _gemv_inputs(M, 256, 128, cuda, seed=M)
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_a8_cuda(xq, sx, q, s, torch.bfloat16)
+        counts = ops.launch_counts()
+        assert counts["w8a8"] == 1
+        assert counts["w8a8_gemv"] == int(M <= 8), M
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(
+            xq, sx, q, s, torch.bfloat16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # (M, K, N, x dtype, bits, offset of x in elements): the plan's tiled
