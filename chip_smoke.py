@@ -8,8 +8,9 @@ Run from the root of a checkout, with nothing built beforehand:
 
 ``--parent`` names a checkout of the parent commit (``git archive`` into a
 directory that ``.gitignore`` lists): its quantized matmuls' decode calls
-are then timed by that tree in a process of its own, in the same run on the
-same card, beside this tree's.
+and its fused decode attention (K6/K7, a16 and a8) are then timed by that
+tree in a process of its own, in the same run on the same card, beside
+this tree's.
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero and prints no result):
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
    once); what ``-Xptxas -v`` said of the tensor-core kernels (``qmm_tc``,
    ``qmm_a8_wgmma``), of the W8A8 GEMV (``qmm_a8_gemv``, which must not
-   spill) and of the split-KV decode attention (``fd_split``,
-   ``fd_combine``) is printed.
+   spill), of the split-KV decode attention (``fd_split``,
+   ``fd_combine``) and of the fused decode attention (``fused_decode``,
+   14 instantiations, which must not spill) is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
    version and timed beside its bound, its plain version and the library
    call (or composition of calls) that computes the same function.  K1-K5
@@ -287,10 +289,61 @@ def decode_call_ms(tier: str, layer=LAYER_MATMULS, seed: int = 21):
     return out
 
 
+def fused_call_ms(seed: int = 31):
+    """Device ms of one K6 and one K7 call at BLOOM-7B1's decode shape
+    (B = 8, D = 4096, 32 x 128, n_valid 576 of 640, bf16 x), a16 and a8,
+    K7 through 16-slot pages of an arena of half the slab's pages; input
+    sets (weights and cache) rotated through > 256 MB.  Inputs come from
+    ``seed`` alone and go through the wrappers only, so a parent tree given
+    the same arguments (``parent_decode_call_ms``) times the same work."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_arena import N_RESERVED
+    B, D, nh, nkv, dh, W, nv = (ATTN7[k] for k in ("B", "D", "nh", "nkv",
+                                                   "dh", "W", "n_valid"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bt = PAGED["bt"]
+    n_b = W // bt
+    P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
+    table = torch.stack([N_RESERVED + torch.randperm(
+        P - N_RESERVED, generator=gen, device=dev)[:n_b]
+        for _ in range(B)]).to(torch.int32)
+    x = torch.randn((B, D), generator=gen, device=dev).to(torch.bfloat16)
+    ws = {a8: _fused_weights(D, nh, nkv, dh, gen, dev, 8 if a8 else 16)[0]
+          for a8 in (False, True)}
+    w_bytes = sum(w.numel() * w.element_size() for w in ws[False])
+    n_copy = max(1, min(8, math.ceil(ROTATE_BYTES / (
+        w_bytes + 2 * B * W * nkv * dh * 2))))
+    wc = {a8: [[w.clone() for w in ws[a8]] for _ in range(n_copy)]
+          for a8 in (False, True)}
+
+    def kv(shape):
+        return [torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(n_copy)]
+
+    ks, vs = kv((B, W, nkv, dh)), kv((B, W, nkv, dh))
+    kp, vp = kv((P, bt, nkv, dh)), kv((P, bt, nkv, dh))
+    cos, sin = ops._rope_rows(nv, dh, 1e4, dev)
+    out = {}
+    for a8 in (False, True):
+        tag = "_a8" if a8 else ""
+        out["K6" + tag] = device_ms(
+            lambda i: fd.flash_decode_fused_cuda(
+                x, *wc[a8][i], ks[i], vs[i], nv, -1, cos, sin, True, a8),
+            n_copy)
+        out["K7" + tag] = device_ms(
+            lambda i: fd.flash_decode_fused_paged_cuda(
+                x, *wc[a8][i], kp[i], vp[i], table, nv, -1, cos, sin, True,
+                a8), n_copy)
+    return out
+
+
 def parent_decode_call_ms(parent: Path):
-    """``decode_call_ms`` of every quantized tier at BLOOM-3B's layer, and of
-    K2 at BLOOM-7B1's, run by the checkout ``parent`` (its own kernels,
-    built into ``parent/build``) in a process of its own on this card."""
+    """``decode_call_ms`` of every quantized tier at BLOOM-3B's layer, of K2
+    at BLOOM-7B1's, and ``fused_call_ms`` (K6/K7), run by the checkout
+    ``parent`` (its own kernels, built into ``parent/build``) in a process
+    of its own on this card."""
     code = (
         "import json, sys\n"
         f"sys.path.insert(0, {str(parent / 'src')!r})\n"
@@ -303,6 +356,7 @@ def parent_decode_call_ms(parent: Path):
         "with torch.no_grad():\n"
         "    out = {t: cs.decode_call_ms(t) for t in ('w8a16', 'w8a8', 'w4a16')}\n"
         "    out['w8a8_bloom7b1'] = cs.decode_call_ms('w8a8', cs.LAYER_MATMULS_7B1)\n"
+        "    out['fused'] = cs.fused_call_ms()\n"
         "out['tree'] = repro_torch.__file__\n"
         "print(json.dumps(out))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -1064,6 +1118,16 @@ def kernel_phase(parent=None):
     fused = fused_phase()
     torch.cuda.empty_cache()
     parent_ms = parent_decode_call_ms(parent) if parent else {}
+    if parent_ms:
+        # K6/K7 as the parent's calls time them, this tree's in the same way
+        calls = fused_call_ms()
+        torch.cuda.empty_cache()
+        log(f"K6/K7 calls (ms): this tree {json.dumps(calls)}, the parent "
+            f"{json.dumps(parent_ms['fused'])}")
+        for k in ("K6", "K7"):
+            for tag in ("", "_a8"):
+                fused[k][2]["call" + tag + "_ms"] = calls[k + tag]
+                fused[k][2]["parent" + tag + "_ms"] = parent_ms["fused"][k + tag]
     for name, counter, *_ in KERNELS:
         if name.endswith("_gemv_bloom7b1"):
             err, tol, both = quant_matmul_phase(
@@ -1137,6 +1201,9 @@ def kernel_phase(parent=None):
                f"plain_ms={t['prefill_plain_ms']:.3f} library_ms="
                f"{t['prefill_library_ms']:.3f}" if "prefill_ms" in t else "")
             + (f"; a8 ms={t['a8_ms']:.4f}" if "a8_ms" in t else "")
+            + (f"; parent ms={t['parent_ms']:.4f} a8 {t['parent_a8_ms']:.4f} "
+               f"(this tree timed alike {t['call_ms']:.4f}, a8 "
+               f"{t['call_a8_ms']:.4f})" if "parent_a8_ms" in t else "")
             + (f"; shared_arena_ms={t['shared_arena_ms']:.4f}"
                if "shared_arena_ms" in t else "")
             + (f"; cuda_core_tiled_ms={t['cuda_core_tiled_ms']:.3f}"
@@ -1147,7 +1214,7 @@ def kernel_phase(parent=None):
                if "calls_ms" in t else "")
             + (f"; parent_ms={t['parent_ms']:.4f} parent_calls_ms="
                f"{json.dumps(t['parent_calls_ms'])}"
-               if "parent_ms" in t else ""))
+               if "parent_calls_ms" in t else ""))
     return results
 
 
@@ -1973,7 +2040,14 @@ def main() -> int:
     ptxas_fc = ptxas_lines("flash_decode", "fd_combine")
     check(len(ptxas_fc) == 2,
           f"ptxas -v reported {len(ptxas_fc)} fd_combine kernels")
-    for line in ptxas + ptxas_a8 + ptxas_gv + ptxas_fd + ptxas_fc:
+    # K6/K7: fused_decode over {f32, bf16} x {a16, a8} x {tensor cores,
+    # CUDA cores} (f32 at a16 on the CUDA cores only) x {slab, paged}
+    ptxas_fu = ptxas_lines("flash_decode_fused", "fused_decode")
+    check(len(ptxas_fu) == 14,
+          f"ptxas -v reported {len(ptxas_fu)} fused_decode kernels")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
+              for line in ptxas_fu), f"fused_decode spills: {ptxas_fu}")
+    for line in ptxas + ptxas_a8 + ptxas_gv + ptxas_fd + ptxas_fc + ptxas_fu:
         log(f"ptxas -v, {line}")
 
     with torch.no_grad():

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time full-width BLOOM-3B's W8A16 decode step, over the slab and over the
-paged arena (and with ``--w8a8`` its W8A8 step), for several checkouts in
-turns on one NVIDIA GPU, so that two versions of the port are compared
-inside one run on one card.
+paged arena (and with ``--w8a8`` its W8A8 step), or with ``--model
+bloom_7b1`` BLOOM-7B1's W8A16 and W8A8 steps on the fused tier (K6 over the
+slab, K7 over the arena), for several checkouts in turns on one NVIDIA GPU,
+so that two versions of the port are compared inside one run on one card.
 
 Run from the root of a checkout:
 
     python3 scripts/decode_step_ab.py --trees build/parent,.,.,build/parent
     python3 scripts/decode_step_ab.py --w8a8 --trees build/parent,.,.,build/parent
+    python3 scripts/decode_step_ab.py --model bloom_7b1 \
+        --trees build/parent,.,.,build/parent
 
 Each entry runs in a process of its own with ``<tree>/src`` first on the
 path (its kernels are built into ``<tree>/build``).  It builds BLOOM-3B at
@@ -24,7 +27,12 @@ at the first decode position over the slab the same ways, its device work
 split in place between ``quantize_rowwise`` and K2
 (``chip_smoke.w8a8_decode_breakdown``), each of K2's six calls of a layer at
 decode (``chip_smoke.decode_call_ms``), and the host time of one K2 call at
-the wq shape.  Prints one JSON line per entry and a table at the end.
+the wq shape.  BLOOM-7B1 (the same batch, random weights from seed 0) takes
+W8A16 and W8A8 each at the first decode position over the slab and at
+position 576 over an arena of 16-slot pages: device work as one CUDA-graph
+replay, the eager median and least of 31 steps, and the launches of one
+step (the fused kernel must run in every layer).  Prints one JSON line per
+entry and a table at the end.
 """
 from __future__ import annotations
 
@@ -136,6 +144,74 @@ def one(tree: Path, w8a8: bool = False) -> dict:
                 device=torch.cuda.get_device_name(0))
 
 
+def one_7b1(tree: Path) -> dict:
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_arena import KVArena
+
+    cfg = get_arch("bloom-7b1")
+    out = dict(tree=str(tree), device=torch.cuda.get_device_name(0))
+    with torch.no_grad():
+        engine = ServingEngine(cfg, quant_bits=8, seed=0, batch_capacity=8,
+                               s_max=cs.S_MAX, n_max=cs.N_MAX, device="cuda")
+        prompts, _ = cs._prompts(cfg, cs.BATCH, cs.S_MAX, cs.N_MAX)
+        for label, bits in (("W8A16", 8), ("W8A8", (8, 8))):
+            params = engine.params_for(bits)
+            host = engine._prepare(prompts, [engine.n_max] * len(prompts),
+                                   bits)[1]
+            cur, cache = engine._prefill(params,
+                                         host[:, :engine.s_max].to("cuda"))
+
+            def slab(i=0):
+                return engine._decode(params, cache, cur, 0)
+
+            slab()
+            ops.reset_launch_counts()
+            slab()
+            slab_calls = ops.launch_counts()
+            slab_dev = cs.device_ms(slab)
+            slab_eager = eager_ms(slab)
+            del cache
+            arena = KVArena.for_engines(engine, block_tokens=cs.PAGED["bt"])
+            st = engine.start_chunked(prompts, [engine.n_max] * len(prompts),
+                                      quant_bits=bits, arena=arena)
+            engine._extend_leases(st, engine.n_max)
+            pages, table = arena.buffers(), st.table.device
+            pos = engine.s_max + engine.n_max // 2
+            cur_p = st.cur[:, None]
+
+            def paged(i=0):
+                return engine.model.decode_step_paged(params, pages, table,
+                                                      cur_p, pos)
+
+            paged()
+            ops.reset_launch_counts()
+            paged()
+            paged_calls = ops.launch_counts()
+            paged_dev = cs.device_ms(paged)
+            paged_eager = eager_ms(paged)
+            engine.release_all(st)
+            del arena, pages, table, st
+            torch.cuda.empty_cache()
+            n = cfg.n_layers
+            if slab_calls["flash_decode_fused"] != n \
+                    or paged_calls["flash_decode_fused_paged"] != n:
+                raise RuntimeError(f"{label}: a step missed the fused tier: "
+                                   f"slab {slab_calls}, paged {paged_calls}")
+            out[label] = dict(
+                step_device_ms=slab_dev, step_median_ms=slab_eager[0],
+                step_least_ms=slab_eager[1], paged_step_device_ms=paged_dev,
+                paged_step_median_ms=paged_eager[0],
+                paged_step_least_ms=paged_eager[1])
+    return out
+
+
 def w8a8_step(engine, prompts, host_us):
     """The W8A8 decode step at the first position over the slab: eager (mean
     of 8 after 2 warm-up steps; median and least of 31), device work, its
@@ -191,11 +267,14 @@ def main() -> int:
     ap.add_argument("--trees", help="comma-separated checkouts, in turns")
     ap.add_argument("--w8a8", action="store_true",
                     help="also time the W8A8 step and K2's decode calls")
+    ap.add_argument("--model", choices=("bloom_3b", "bloom_7b1"),
+                    default="bloom_3b")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(Path(args.one).resolve(), args.w8a8)),
-              flush=True)
+        tree = Path(args.one).resolve()
+        print(json.dumps(one_7b1(tree) if args.model == "bloom_7b1"
+                         else one(tree, args.w8a8)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -203,7 +282,8 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     rows = []
     for tree in args.trees.split(","):
-        out = subprocess.run([sys.executable, __file__, "--one", tree]
+        out = subprocess.run([sys.executable, __file__, "--one", tree,
+                              "--model", args.model]
                              + (["--w8a8"] if args.w8a8 else []),
                              capture_output=True, text=True)
         if out.returncode:
@@ -212,6 +292,15 @@ def main() -> int:
         rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(rows[-1]), flush=True)
     for r in rows:
+        if args.model == "bloom_7b1":
+            print(r["tree"] + ": " + "; ".join(
+                f"{k} step {v['step_device_ms']:.3f} ms device, eager median "
+                f"{v['step_median_ms']:.2f} least {v['step_least_ms']:.2f}; "
+                f"paged {v['paged_step_device_ms']:.3f} ms device, eager "
+                f"median {v['paged_step_median_ms']:.2f} least "
+                f"{v['paged_step_least_ms']:.2f}"
+                for k, v in r.items() if k in ("W8A16", "W8A8")))
+            continue
         print(f"{r['tree']}: slab step {r['step_ms']:.2f} ms eager "
               f"(median {r['step_median_ms']:.2f}, least "
               f"{r['step_least_ms']:.2f}), "

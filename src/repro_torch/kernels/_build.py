@@ -90,9 +90,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "flash_decode_paged": (P, P, P, P, P, I, P, P, I, I, I, I, I, I, L,
                                L, L, F, I, I, P),
         "flash_decode_fused": (P,) * 11 + (P, I, P, I) + (P,) * 6
-        + (I,) * 6 + (F, F) + (I,) * 4 + (P,),
+        + (I,) * 6 + (F, F) + (I,) * 8 + (P,),
         "flash_decode_fused_paged": (P,) * 12 + (P, I, P, I) + (P,) * 6
-        + (I,) * 7 + (L, L, L) + (F, F) + (I,) * 4 + (P,),
+        + (I,) * 7 + (L, L, L) + (F, F) + (I,) * 8 + (P,),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -32,13 +32,18 @@ and the slot ``evict`` are masked; n_valid may be 0), folds the current
 token in as the last online-softmax step and pushes each head group
 through its wo tile; the per-head partials are summed in head order in
 x's type, as the TPU grid accumulates its output block.  It returns
-(o (B, D), k1, v1 (B, nkv, dh)); the caller writes k1/v1.
+(o (B, D), k1, v1 (B, nkv, dh)); the caller writes k1/v1.  The kernel
+reads each weight byte once for up to ``FU_ROWS`` rows of x (one launch
+per group of them): one cluster of blocks per KV head, cut by
+``fused_plan`` from the shapes alone, so a row's results are bitwise the
+same alone and in a batch.
 ``flash_decode_fused_plain`` / ``flash_decode_fused_paged_plain`` are the
 same functions in plain PyTorch.
 """
 from __future__ import annotations
 
-from typing import Union
+from functools import lru_cache
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +68,52 @@ def split_plan(W: int):
     sums them.  The kernels launch one block per split and size their
     workspace by it; a split at or past a row's n_valid does nothing."""
     return [(s, min(s + SPLIT, W)) for s in range(0, W, SPLIT)]
+
+
+# constants of csrc/flash_decode_fused.cu, which the CPU tests hold equal
+FU_ROWS = 8             # FU_ROWS, rows of x one launch takes
+FU_KSTEP = 16           # FU_KSTEP, k rows of a warp step
+FU_BN = 128             # FU_BN, columns of a warp tile
+FU_WARPS = 8            # FU_WARPS, warps of a block
+FU_BS = 64              # FU_BS, cache slots of an attention tile
+FU_MAX_CLUSTER = 8      # FU_MAX_CLUSTER, blocks of a cluster
+_FUSED_TARGET_BLOCKS = 132      # the H100's SMs
+
+
+class FusedPlan(NamedTuple):
+    """How K6/K7 cut one call's work (``fused_plan``)."""
+    cluster: int                           # blocks of one KV head's cluster
+    k_per_block: int                       # D rows a block projects q/k/v over
+    wo_per_block: int                      # wo columns a block takes
+    k_splits: Tuple[Tuple[int, int], ...]  # [start, stop) of D, by block
+    wo_splits: Tuple[Tuple[int, int], ...]  # [start, stop) of wo's columns
+    rows: Tuple[Tuple[int, ...], ...]      # rows of a group of FU_ROWS, by block
+    slot_tile: int                         # cache slots of a tile, in order
+    merge_order: Tuple[int, ...]           # blocks whose q/k/v sums are added
+
+
+@lru_cache(maxsize=None)
+def fused_plan(D: int, nkv: int, G: int, dh: int) -> FusedPlan:
+    """The partition of K6/K7, from the shapes alone (never B or values).
+
+    One cluster of ``cluster`` blocks per KV head: the largest power of two
+    up to ``FU_MAX_CLUSTER`` that keeps nkv * cluster within the card's 132
+    SMs (4 at BLOOM-7B1's nkv = 32).  Block r projects q/k/v (the head's
+    (G + 2) * dh columns) over D rows ``k_splits[r]`` for every row of x,
+    attends the rows ``rows[r]`` of each group of ``FU_ROWS`` (r, r +
+    cluster, ...) over tiles of ``slot_tile`` slots in index order, and
+    takes wo columns ``wo_splits[r]`` of the head's G * dh rows.  The q/k/v
+    sums of a row are added over the blocks in ``merge_order``, within a
+    block over its warps in warp order; the heads' partials in head order.
+    A block's D rows and wo columns are whole warp steps (16)."""
+    C = 1
+    while 2 * C <= FU_MAX_CLUSTER and 2 * C * nkv <= _FUSED_TARGET_BLOCKS:
+        C *= 2
+    per = -(-(-(-D // C)) // FU_KSTEP) * FU_KSTEP
+    splits = tuple((min(D, r * per), min(D, (r + 1) * per)) for r in range(C))
+    return FusedPlan(C, per, per, splits, splits,
+                     tuple(tuple(range(r, FU_ROWS, C)) for r in range(C)),
+                     FU_BS, tuple(range(C)))
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -338,9 +389,8 @@ def _fused_args(x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin,
                 or t.numel() != dh // 2 or not t.is_contiguous():
             raise ValueError(f"{name}: need {dh // 2} contiguous CUDA "
                              f"float32 values, got {tuple(t.shape)}")
-    ws = (wq, wk, wv, wo)
-    vec = 16 if dh % 16 == 0 and D % 16 == 0 \
-        and all(w.data_ptr() % 16 == 0 for w in ws) else 2
+    mma = int(dh % 16 == 0 and D % 16 == 0
+              and all(w.data_ptr() % 16 == 0 for w in (wq, wk, wv, wo)))
     nv_ptr, nv_scalar = _scalar_or_ptr(n_valid, B, "n_valid")
     ev_ptr, ev_scalar = _scalar_or_ptr(evict, B, "evict")
     out = torch.empty_like(x)
@@ -348,7 +398,7 @@ def _fused_args(x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin,
     v1 = torch.empty_like(k1)
     part = torch.empty((B, nkv, D), dtype=torch.float32, device=x.device)
     ptrs = [t.data_ptr() for t in (x, wq, sq, wk, sk, wv, sv, wo, so)]
-    return (B, D, nh, vec, ptrs, (nv_ptr, nv_scalar, ev_ptr, ev_scalar),
+    return (B, D, nh, mma, ptrs, (nv_ptr, nv_scalar, ev_ptr, ev_scalar),
             (cos.data_ptr(), sin.data_ptr(), out.data_ptr(), k1.data_ptr(),
              v1.data_ptr(), part.data_ptr()), (out, k1, v1))
 
@@ -357,9 +407,10 @@ def flash_decode_fused_cuda(x, wq, sq, wk, sk, wv, sv, wo, so, k_cache,
                             v_cache, n_valid, evict, cos, sin,
                             use_rope: bool = True, a8: bool = False):
     """K6: ``flash_decode_fused_plain``'s function on CUDA tensors (one
-    call launches the fused kernel and the fixed-order head sum)."""
+    call launches the fused kernel once per group of ``FU_ROWS`` rows, then
+    the fixed-order head sum)."""
     nkv, dh = k_cache.shape[2], k_cache.shape[3]
-    B, D, nh, vec, ptrs, ints, outs, res = _fused_args(
+    B, D, nh, mma, ptrs, ints, outs, res = _fused_args(
         x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin, n_valid, evict)
     W = k_cache.shape[1]
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -368,12 +419,15 @@ def flash_decode_fused_cuda(x, wq, sq, wk, sk, wv, sv, wo, so, k_cache,
             raise ValueError(f"{name}: need a contiguous CUDA {x.dtype} "
                              f"tensor of shape {(B, W, nkv, dh)}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    plan = fused_plan(D, nkv, nh // nkv, dh)
     lib = _build.library("flash_decode_fused")
     rc = lib.flash_decode_fused(
         *ptrs, k_cache.data_ptr(), v_cache.data_ptr(), *ints, *outs, B, D, nh,
         nkv, dh, W, 1.0 / dh ** 0.5, _INV_INT8_MAX, int(use_rope), int(a8),
-        int(x.dtype == torch.bfloat16),
-        vec, torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), mma,
+        _wide(dh, (k_cache, v_cache), (dh,), x.element_size()),
+        plan.cluster, plan.k_per_block, plan.wo_per_block,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "flash_decode_fused")
     LAUNCHES["flash_decode_fused"] += 1
     return res
@@ -391,7 +445,7 @@ def flash_decode_fused_paged_cuda(x, wq, sq, wk, sk, wv, sv, wo, so,
         raise ValueError(f"k_pages: need (P, bt, nkv, dh), got "
                          f"{tuple(k_pages.shape)}")
     P, bt, nkv, dh = k_pages.shape
-    B, D, nh, vec, ptrs, ints, outs, res = _fused_args(
+    B, D, nh, mma, ptrs, ints, outs, res = _fused_args(
         x, wq, sq, wk, sk, wv, sv, wo, so, nkv, dh, cos, sin, n_valid, evict)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if not t.is_cuda or t.dtype != x.dtype \
@@ -407,14 +461,17 @@ def flash_decode_fused_paged_cuda(x, wq, sq, wk, sk, wv, sv, wo, so,
         raise ValueError(f"table: need a contiguous CUDA int32 (B={B}, n_b) "
                          f"tensor, got {table.dtype} {tuple(table.shape)} on "
                          f"{table.device}")
+    plan = fused_plan(D, nkv, nh // nkv, dh)
     lib = _build.library("flash_decode_fused")
     ps, ss, hs = k_pages.stride()[:3]
     rc = lib.flash_decode_fused_paged(
         *ptrs, k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
         *ints, *outs, B, D, nh, nkv, dh, table.shape[1], bt, ps, ss, hs,
         1.0 / dh ** 0.5, _INV_INT8_MAX, int(use_rope), int(a8),
-        int(x.dtype == torch.bfloat16),
-        vec, torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), mma,
+        _wide(dh, (k_pages, v_pages), (ps, ss, hs), x.element_size()),
+        plan.cluster, plan.k_per_block, plan.wo_per_block,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "flash_decode_fused_paged")
     LAUNCHES["flash_decode_fused_paged"] += 1
     return res

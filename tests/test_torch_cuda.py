@@ -632,6 +632,93 @@ def test_flash_decode_fused_paged_reads_a_wider_tail_in_place(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("dh", [32, 80, 128])
+@pytest.mark.parametrize("G", [1, 2, 7, 12])
+def test_flash_decode_fused_gqa_and_batches_vs_plain(cuda, G, dh, act_bits):
+    """K6 and K7 against their plain versions at the GQA group sizes of the
+    queued configs, B 1/3/8/9 (9: two launches of 8 rows) and positions 0,
+    37, 64 (a full window) and 71 (the eviction slot), float32 and
+    bfloat16; K7 bitwise equal to K6 on the same values."""
+    W, a8 = 64, act_bits == 8
+    for B in (1, 3, 8, 9):
+        x, ws = _fused_inputs(B, 256, G, 2, dh, act_bits, cuda, seed=B + G)
+        ck, cv, kp, vp, table = _fused_slab_and_pages(x, W, 2, dh, 16, cuda,
+                                                      seed=dh)
+        for pos in (0, 37, 64, 71):
+            nv, ev = min(pos, W), (pos % W if pos >= W else -1)
+            cos, sin = ops._rope_rows(pos, dh, 1e4, cuda)
+            for dt in (torch.float32, torch.bfloat16):
+                xd, ckd, cvd, kpd, vpd = (t.to(dt)
+                                          for t in (x, ck, cv, kp, vp))
+                got = tfd.flash_decode_fused_cuda(xd, *ws, ckd, cvd, nv, ev,
+                                                  cos, sin, True, a8)
+                want = tfd.flash_decode_fused_plain(xd, *ws, ckd, cvd, nv,
+                                                    ev, cos, sin, True, a8)
+                for g, w, tol in zip(got, want,
+                                     _fused_tols(dt, a8, ws, cvd, want)):
+                    torch.testing.assert_close(g, w, **tol)
+                paged = tfd.flash_decode_fused_paged_cuda(
+                    xd, *ws, kpd, vpd, table, nv, ev, cos, sin, True, a8)
+                for p, g in zip(paged, got):
+                    assert torch.equal(p, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("G,dh", [(1, 128), (7, 32), (2, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_fused_rows_invariant_and_deterministic(cuda, G, dh,
+                                                             act_bits, dtype):
+    """Each row's (o, k1, v1) is bitwise the same alone and in a batch of 9
+    (per-row n_valid and evict tensors); two calls are equal, and so is a
+    CUDA-graph replay; K7 equals K6 bitwise, also through a wider page
+    tail's corner."""
+    W, B, a8 = 64, 9, act_bits == 8
+    x, ws = _fused_inputs(B, 256, G, 2, dh, act_bits, cuda, seed=G * dh)
+    x = x.to(dtype)
+    ck, cv, kp, vp, table = _fused_slab_and_pages(
+        x, W, 2, dh, 16, cuda, tail=(3, dh + 16), seed=1)
+    ck, cv = ck.to(dtype), cv.to(dtype)
+    kp, vp = (t._base.to(dtype)[..., :2, :dh] for t in (kp, vp))
+    assert not kp.is_contiguous()
+    nv = torch.tensor([0, 37, 64, 64, 20, 64, 5, 64, 33], dtype=torch.int32,
+                      device=cuda)
+    ev = torch.tensor([-1, -1, 7, -1, -1, 63, -1, 0, -1], dtype=torch.int32,
+                      device=cuda)
+    cos, sin = ops._rope_rows(37, dh, 1e4, cuda)
+
+    def k6(lo=0, hi=B):
+        return tfd.flash_decode_fused_cuda(
+            x[lo:hi].contiguous(), *ws, ck[lo:hi].contiguous(),
+            cv[lo:hi].contiguous(), nv[lo:hi].contiguous(),
+            ev[lo:hi].contiguous(), cos, sin, True, a8)
+
+    full = k6()
+    for b in range(B):
+        for f, r in zip(full, k6(b, b + 1)):
+            assert torch.equal(f[b:b + 1], r), b
+    for f, r in zip(full, k6()):
+        assert torch.equal(f, r)
+    paged = tfd.flash_decode_fused_paged_cuda(x, *ws, kp, vp, table, nv, ev,
+                                              cos, sin, True, a8)
+    for f, p in zip(full, paged):
+        assert torch.equal(f, p)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k6()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k6()
+    graph.replay()
+    torch.cuda.synchronize()
+    for f, c in zip(full, captured):
+        assert torch.equal(f, c)
+
+
+@pytest.mark.cuda
 def test_fused_engine_on_the_card(cuda):
     """Reduced float32 BLOOM-7B1 (d_head 128) on the card takes the fused
     tier at W8A16 and W8A8: generate == generate_reference, paged ==
