@@ -19,8 +19,8 @@ Phases (any failure exits non-zero and prints no result):
 2. Build: every ``src/repro_torch/csrc/*.cu`` is compiled with ``nvcc`` for
    ``sm_90a`` into ``build/repro_torch/`` (one ``nvcc`` per source, all at
    once); what ``-Xptxas -v`` said of the tensor-core kernels (``qmm_tc``,
-   ``qmm_a8_wgmma``), of the W8A8 GEMV (``qmm_a8_gemv``, which must not
-   spill), of the split-KV decode attention (``fd_split``,
+   ``qmm_a8_wgmma``), of the GEMVs (``qmm_a8_gemv`` and ``qmm_a16_gemv``,
+   which must not spill), of the split-KV decode attention (``fd_split``,
    ``fd_combine``) and of the fused decode attention (``fused_decode``,
    14 instantiations, which must not spill) is printed.
 3. Kernels: each hand-written kernel is held against its plain PyTorch
@@ -32,8 +32,11 @@ Phases (any failure exits non-zero and prints no result):
    row-invariant in M and deterministic (K2 bitwise equal to its plain
    version), and timed beside the CUDA-core kernel they replaced; the W8A8
    tier's eager ``quantize_rowwise`` is timed at the same shapes; at decode
-   each of the layer's six calls is timed apart, K2 (the W8A8 GEMV) also at
-   BLOOM-7B1's layer, its rows bitwise the same at M = 1 and M = 8; B = 8,
+   each of the layer's six calls is timed apart, the GEMVs (K2 on
+   ``qmm_a8_gemv``, K1 and K3 with bf16 x on ``qmm_a16_gemv``) also at
+   BLOOM-7B1's layer, their rows bitwise the same at M = 1 and M = 8 and
+   two calls bitwise equal, every bf16 decode call counted by its GEMV;
+   float32 x at decode still runs ``qmm_skinny``; B = 8,
    W = 640, 32 heads
    of 80 for decode attention, over a slab and, paged, through a block
    table of 16-slot pages); the paged kernel must be bitwise equal to the
@@ -67,7 +70,8 @@ Phases (any failure exits non-zero and prints no result):
    ``quantize_rowwise`` and of K2: their time and share inside the prefill;
    one W8A8 decode step, captured as a CUDA graph with the same events,
    gives their device time and share inside the step.  Every W8A8 call at
-   M <= 8 must have run the GEMV (its counter ``w8a8_gemv``).
+   M <= 8 must have run the GEMV (its counter ``w8a8_gemv``), and so must
+   every W8A16 and W4A16 call at M <= 8 (``w8a16_gemv``, ``w4a16_gemv``).
 6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
    + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
    pages (``dftsp``, chunk k = 16), counted on its own: the paged decode
@@ -340,8 +344,8 @@ def fused_call_ms(seed: int = 31):
 
 
 def parent_decode_call_ms(parent: Path):
-    """``decode_call_ms`` of every quantized tier at BLOOM-3B's layer, of K2
-    at BLOOM-7B1's, and ``fused_call_ms`` (K6/K7), run by the checkout
+    """``decode_call_ms`` of every quantized tier at BLOOM-3B's and at
+    BLOOM-7B1's layer, and ``fused_call_ms`` (K6/K7), run by the checkout
     ``parent`` (its own kernels, built into ``parent/build``) in a process
     of its own on this card."""
     code = (
@@ -355,7 +359,8 @@ def parent_decode_call_ms(parent: Path):
         "_build.build_all()\n"
         "with torch.no_grad():\n"
         "    out = {t: cs.decode_call_ms(t) for t in ('w8a16', 'w8a8', 'w4a16')}\n"
-        "    out['w8a8_bloom7b1'] = cs.decode_call_ms('w8a8', cs.LAYER_MATMULS_7B1)\n"
+        "    for t in ('w8a16', 'w8a8', 'w4a16'):\n"
+        "        out[t + '_bloom7b1'] = cs.decode_call_ms(t, cs.LAYER_MATMULS_7B1)\n"
         "    out['fused'] = cs.fused_call_ms()\n"
         "out['tree'] = repro_torch.__file__\n"
         "print(json.dumps(out))\n")
@@ -379,10 +384,14 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
     bitwise equal to its plain version at every phase, and at decode (the
     GEMV) its rows do not depend on M (each row of the M = 8 call equals
     the same row computed alone).  At decode each call of the layer is
-    timed apart (``decode_call_ms``).  At prefill the CUDA-core tiled
+    timed apart (``decode_call_ms``); K1 and K3 run their GEMV there
+    (``qmm_a16_gemv``, counted by ``w8a16_gemv`` / ``w4a16_gemv``), with
+    rows bitwise invariant in M and two calls bitwise equal, and their
+    float32 x ``qmm_skinny``.  At prefill the CUDA-core tiled
     kernel is timed on the same work, and for K2 also the eager
     ``quantize_rowwise`` of its x (over copies of x that outsize the L2, as
     the weights are at decode)."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.quant import ptq
     bits = 4 if tier == "w4a16" else 8
@@ -467,7 +476,23 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
                               f"{tier} tensor cores K={K} N={N}: rows of "
                               f"M={M} != the same rows of M={m}")
                 if phase == "decode":
+                    ops.reset_launch_counts()
+                    check(torch.equal(got, qm.quant_matmul_cuda(xb, q, s,
+                                                                bits))
+                          and ops.launch_counts()[tier + "_gemv"] == 1,
+                          f"{tier} GEMV M={M} K={K} N={N}: two calls "
+                          f"differ, or the call missed the GEMV "
+                          f"({ops.launch_counts()})")
+                    for r in range(M):
+                        check(torch.equal(got[r], qm.quant_matmul_cuda(
+                            xb[r:r + 1].contiguous(), q, s, bits)[0]),
+                              f"{tier} GEMV K={K} N={N}: row {r} of M={M} "
+                              f"!= the same row at M=1")
+                    ops.reset_launch_counts()
                     g32 = qm.quant_matmul_cuda(x, q, s, bits)
+                    check(ops.launch_counts()[tier + "_gemv"] == 0,
+                          f"{tier} M={M} K={K} N={N}: float32 x took the "
+                          f"GEMV")
                     w32 = qm.quant_matmul_plain(x, q, s, bits)
                     _assert_close(g32, w32, F32_TOL,
                                   f"{tier} M={M} K={K} N={N} f32")
@@ -545,7 +570,9 @@ def quant_matmul_phase(tier: str, layer=LAYER_MATMULS,
     tol = ("bitwise; decode: rows of M=8 bitwise == the same rows at M=1"
            if tier == "w8a8" else
            f"bf16 rtol={BF16_TOL['rtol']} atol={BF16_TOL['atol']}; "
-           f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g})") \
+           f"f32 rtol=atol={F32_TOL['rtol']} (max f32 err {f32_err:.3g}); "
+           f"decode on the GEMV: rows of M=8 bitwise == the same rows at "
+           f"M=1, two calls bitwise equal") \
         + ("" if "prefill" not in acc else
            "; prefill on the tensor cores: rows of M=4096 bitwise == those "
            "of M=512 and M=136, two calls bitwise equal"
@@ -1060,8 +1087,17 @@ KERNELS = [
      "src/repro_torch/csrc/quant_matmul.cu",
      "src/repro/kernels/quant_matmul.py:97",
      "bloom7b1_continuous_auto_measured"),
-    # the W8A8 GEMV (K2 at decode) at BLOOM-7B1's layer, whose FFN runs it
-    # beside K6; BLOOM-3B's is the decode half of quant_matmul_w8a8
+    # the GEMVs (K1/K3 with bf16 x, K2 at decode) at BLOOM-7B1's layer,
+    # whose FFN runs them beside K6 (W4A16 beside K4/K5, in the measured
+    # run's calibration); BLOOM-3B's are the decode halves of
+    # quant_matmul_w8a16 / _w8a8 / _w4a16
+    ("quant_matmul_w8a16_gemv_bloom7b1", "w8a16_gemv",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:62", "bloom7b1_dftsp_w8a16"),
+    ("quant_matmul_w4a16_gemv_bloom7b1", "w4a16_gemv",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:79",
+     "bloom7b1_continuous_auto_measured"),
     ("quant_matmul_w8a8_gemv_bloom7b1", "w8a8_gemv",
      "src/repro_torch/csrc/quant_matmul.cu",
      "src/repro/kernels/quant_matmul.py:97",
@@ -1130,14 +1166,15 @@ def kernel_phase(parent=None):
                 fused[k][2]["parent" + tag + "_ms"] = parent_ms["fused"][k + tag]
     for name, counter, *_ in KERNELS:
         if name.endswith("_gemv_bloom7b1"):
+            tier = counter[:-len("_gemv")]
             err, tol, both = quant_matmul_phase(
-                "w8a8", LAYER_MATMULS_7B1, (("decode", DECODE_M),))
+                tier, LAYER_MATMULS_7B1, (("decode", DECODE_M),))
             t = dict(both["decode"])
-            shape = (f"one BLOOM-7B1 decode layer on the W8A8 GEMV: 4 x "
-                     f"(K=N=4096) + (4096->16384) + (16384->4096), "
-                     f"M={DECODE_M}, {_operands(counter)}")
+            shape = (f"one BLOOM-7B1 decode layer on the "
+                     f"{tier.upper()} GEMV: 4 x (K=N=4096) + (4096->16384) "
+                     f"+ (16384->4096), M={DECODE_M}, {_operands(counter)}")
             if parent_ms:
-                t["parent_calls_ms"] = parent_ms["w8a8_bloom7b1"]
+                t["parent_calls_ms"] = parent_ms[tier + "_bloom7b1"]
         elif name.endswith("_tc_bloom7b1"):
             err, tol, both = quant_matmul_phase(
                 counter[:-3], LAYER_MATMULS_7B1, (("prefill", PREFILL_M),))
@@ -1402,29 +1439,29 @@ def _timed(fn):
 # counters that must not).  Each run is counted on its own.
 MAIN_PATHS = [
     ("dftsp_w8a16", "W8A16", "dftsp", 8,
-     ("w8a16", "w8a16_tc", "flash_decode"),
-     ("w8a8", "w8a8_tc", "w8a8_gemv", "w4a16", "w4a16_tc")),
+     ("w8a16", "w8a16_tc", "w8a16_gemv", "flash_decode"),
+     ("w8a8", "w8a8_tc", "w8a8_gemv", "w4a16", "w4a16_tc", "w4a16_gemv")),
     ("dftsp_auto_split", "W8A16", "dftsp:quant=auto,split=true", 8,
      ("w8a8", "w8a8_tc", "w8a8_gemv", "flash_decode"), ()),
     ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4,
-     ("w4a16", "w4a16_tc", "flash_decode"),
-     ("w8a16", "w8a16_tc", "w8a8", "w8a8_tc", "w8a8_gemv")),
+     ("w4a16", "w4a16_tc", "w4a16_gemv", "flash_decode"),
+     ("w8a16", "w8a16_tc", "w8a16_gemv", "w8a8", "w8a8_tc", "w8a8_gemv")),
 ]
 
 
 def check_prefill_on_tensor_cores(counts, label):
     """A run that served W8A16, W4A16 or W8A8 prefilled at M > 8, which the
     plan sends to a tensor-core kernel: its count must have moved.  At
-    BLOOM's shapes every other W8A8 call is a decode call (M <= 8), and
-    each of those must have run the GEMV."""
+    BLOOM's shapes (bf16, 16-byte loads) every other call is a decode call
+    (M <= 8), and each of those must have run its tier's GEMV."""
     for c in ("w8a16", "w4a16", "w8a8"):
         if counts[c] > 0:
             check(counts[c + "_tc"] > 0,
                   f"{label}: {c} launched {counts[c]} times but never on "
                   f"the tensor cores (launches {counts})")
-    check(counts["w8a8_gemv"] == counts["w8a8"] - counts["w8a8_tc"],
-          f"{label}: W8A8 decode calls that missed the GEMV (launches "
-          f"{counts})")
+        check(counts[c + "_gemv"] == counts[c] - counts[c + "_tc"],
+              f"{label}: {c} decode calls that missed the GEMV (launches "
+              f"{counts})")
 
 
 def epoch_path(engine, label, method, spec, launched, idle, rate: float,
@@ -1473,7 +1510,7 @@ def serve_paths(engines, rate: float, n_epochs: int):
 
 
 def continuous_phase(engine, spec: str = "dftsp",
-                     launched=("flash_decode_paged", "w8a16"),
+                     launched=("flash_decode_paged", "w8a16", "w8a16_gemv"),
                      idle=("flash_decode",), rate: float = 10.0,
                      n_epochs: int = 3, k: int = 16, label="continuous",
                      policy=None):
@@ -1680,7 +1717,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
               == counts["w8a8_tc"] == 0
               and counts[{"W8A16": "w8a16", "W8A8": "w8a8", "W4A16": "w4a16",
                           "BF16": "flash_decode"}[label]] > 0
-              and counts["w8a8_gemv"] == counts["w8a8"],
+              and all(counts[c + "_gemv"] == counts[c]
+                      for c in ("w8a16", "w4a16", "w8a8")),
               f"slice: {label}: decode-only window launched {counts}")
         # the same step with no host work between its kernels
         dev_ms = device_ms(lambda i: engine._decode(params, cache,
@@ -1808,9 +1846,11 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False):
           and not calls.get("w8a8_tc"),
           f"{engine.cfg.arch_id} {label}: a decode step launched the "
           f"tensor-core prefill kernel: {calls}")
-    check(calls.get("w8a8_gemv", 0) == calls.get("w8a8", 0)
+    counted = ops.launch_counts()          # a parent tree may lack a GEMV
+    check(all(calls.get(c + "_gemv", 0) == calls.get(c, 0)
+              for c in ("w8a16", "w4a16", "w8a8") if c + "_gemv" in counted)
           and (bits != (8, 8) or calls.get("w8a8_gemv", 0) > 0),
-          f"{engine.cfg.arch_id} {label}: W8A8 decode calls that missed the "
+          f"{engine.cfg.arch_id} {label}: decode calls that missed their "
           f"GEMV: {calls}")
     out = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
                decode_device_ms_per_step=dev_ms,
@@ -1881,7 +1921,8 @@ def continuous_measured_phase(engine, k: int = 16):
               if METHODS[n].weight_bits < 16), "measured alphas missing")
     check(len(swap["pairs"]) == 12, f"swap pairs: {sorted(swap['pairs'])}")
     for c in ("flash_decode_fused", "w8a16", "w8a8", "w4a16",
-              "flash_decode", "w8a16_tc", "w4a16_tc", "w8a8_tc"):
+              "flash_decode", "w8a16_tc", "w4a16_tc", "w8a8_tc",
+              "w8a16_gemv", "w4a16_gemv", "w8a8_gemv"):
         check(cal[c] > 0, f"calibration: {c} was never launched ({cal})")
     check_prefill_on_tensor_cores(serving, "measured serving")
     check(serving["flash_decode"] == serving["flash_decode_fused"] == 0,
@@ -1937,9 +1978,9 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     slab_decode = ("flash_decode", "flash_decode_paged")
     runs = {"bloom7b1_dftsp_w8a16": epoch_path(
         engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
-        ("flash_decode_fused", "w8a16", "w8a16_tc"),
+        ("flash_decode_fused", "w8a16", "w8a16_tc", "w8a16_gemv"),
         slab_decode + ("flash_decode_fused_paged", "w8a8", "w8a8_tc",
-                       "w8a8_gemv", "w4a16", "w4a16_tc"), rate,
+                       "w8a8_gemv", "w4a16", "w4a16_tc", "w4a16_gemv"), rate,
         n_epochs)}
     prompts, caps = _prompts(cfg, batch, s_max, n_max)
     for bits in (8, (8, 8)):
@@ -1947,7 +1988,8 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     log(f"slice: {cfg.arch_id}: generate == generate_reference at W8A16 and "
         f"W8A8 ({batch} rows, {n_max} tokens)")
     runs["bloom7b1_continuous_w8a16"] = continuous_phase(
-        engine, launched=("flash_decode_fused_paged", "w8a16", "w8a16_tc"),
+        engine, launched=("flash_decode_fused_paged", "w8a16", "w8a16_tc",
+                          "w8a16_gemv"),
         idle=slab_decode + ("flash_decode_fused",),
         label="bloom7b1_continuous_w8a16")
     runs["bloom7b1_continuous_auto_measured"] = \
@@ -2034,6 +2076,12 @@ def main() -> int:
           f"ptxas -v reported {len(ptxas_gv)} qmm_a8_gemv kernels")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in ptxas_gv), f"qmm_a8_gemv spills: {ptxas_gv}")
+    # the W8A16 / W4A16 GEMV: bits 8 and 4
+    ptxas_g16 = ptxas_lines("quant_matmul", "qmm_a16_gemv")
+    check(len(ptxas_g16) == 2,
+          f"ptxas -v reported {len(ptxas_g16)} qmm_a16_gemv kernels")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
+              for line in ptxas_g16), f"qmm_a16_gemv spills: {ptxas_g16}")
     ptxas_fd = ptxas_lines("flash_decode", "fd_split")
     check(len(ptxas_fd) == 8,
           f"ptxas -v reported {len(ptxas_fd)} fd_split kernels")
@@ -2047,7 +2095,8 @@ def main() -> int:
           f"ptxas -v reported {len(ptxas_fu)} fused_decode kernels")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in ptxas_fu), f"fused_decode spills: {ptxas_fu}")
-    for line in ptxas + ptxas_a8 + ptxas_gv + ptxas_fd + ptxas_fc + ptxas_fu:
+    for line in (ptxas + ptxas_a8 + ptxas_gv + ptxas_g16 + ptxas_fd
+                 + ptxas_fc + ptxas_fu):
         log(f"ptxas -v, {line}")
 
     with torch.no_grad():
@@ -2087,6 +2136,9 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=runs[path]["launches"][counter],
             launches_path=path,
+            # the decode calls among them, on the tier's GEMV
+            **({"gemv_launches": runs[path]["launches"][counter + "_gemv"]}
+               if counter in ("w8a16", "w4a16", "w8a8") else {}),
             launches_by_path={label: run["launches"][counter]
                               for label, run in runs.items()},
             **kernels[name]))

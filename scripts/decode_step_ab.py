@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time full-width BLOOM-3B's W8A16 decode step, over the slab and over the
-paged arena (and with ``--w8a8`` its W8A8 step), or with ``--model
+paged arena (with ``--w8a8`` its W8A8 step, with ``--w4a16`` its W4A16
+step on a 4-bit engine), or with ``--model
 bloom_7b1`` BLOOM-7B1's W8A16 and W8A8 steps on the fused tier (K6 over the
 slab, K7 over the arena), for several checkouts in turns on one NVIDIA GPU,
 so that two versions of the port are compared inside one run on one card.
@@ -9,6 +10,7 @@ Run from the root of a checkout:
 
     python3 scripts/decode_step_ab.py --trees build/parent,.,.,build/parent
     python3 scripts/decode_step_ab.py --w8a8 --trees build/parent,.,.,build/parent
+    python3 scripts/decode_step_ab.py --w4a16 --trees build/parent,.,.,build/parent
     python3 scripts/decode_step_ab.py --model bloom_7b1 \
         --trees build/parent,.,.,build/parent
 
@@ -27,7 +29,11 @@ at the first decode position over the slab the same ways, its device work
 split in place between ``quantize_rowwise`` and K2
 (``chip_smoke.w8a8_decode_breakdown``), each of K2's six calls of a layer at
 decode (``chip_smoke.decode_call_ms``), and the host time of one K2 call at
-the wq shape.  BLOOM-7B1 (the same batch, random weights from seed 0) takes
+the wq shape.  With ``--w4a16`` it builds a 4-bit engine on the same
+weights and times its W4A16 step at the first decode position over the
+slab, eager (mean of 8; median and least of 31) and as one CUDA-graph
+replay, and K3's six calls of a layer at decode one by one.  BLOOM-7B1
+(the same batch, random weights from seed 0) takes
 W8A16 and W8A8 each at the first decode position over the slab and at
 position 576 over an arena of 16-slot pages: device work as one CUDA-graph
 replay, the eager median and least of 31 steps, and the launches of one
@@ -60,7 +66,7 @@ def eager_ms(fn, n: int = 31):
     return sorted(times)[n // 2], min(times)
 
 
-def one(tree: Path, w8a8: bool = False) -> dict:
+def one(tree: Path, w8a8: bool = False, w4a16: bool = False) -> dict:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
     import torch
@@ -133,6 +139,7 @@ def one(tree: Path, w8a8: bool = False) -> dict:
             host_us[name + "_least"] = min(rounds)
         engine.release_all(st)
         a8 = w8a8_step(engine, prompts, host_us) if w8a8 else None
+        a4 = w4a16_step(engine, prompts) if w4a16 else None
     return dict(tree=str(tree), step_ms=slab["decode_ms_per_step"],
                 step_median_ms=slab_eager[0], step_least_ms=slab_eager[1],
                 step_device_ms=slab["decode_device_ms_per_step"],
@@ -140,7 +147,7 @@ def one(tree: Path, w8a8: bool = False) -> dict:
                 paged_step_median_ms=paged_eager[0],
                 paged_step_least_ms=paged_eager[1],
                 paged_step_device_ms=paged_dev,
-                host_us_per_call=host_us, w8a8=a8,
+                host_us_per_call=host_us, w8a8=a8, w4a16=a4,
                 device=torch.cuda.get_device_name(0))
 
 
@@ -262,11 +269,43 @@ def w8a8_step(engine, prompts, host_us):
                 k2_calls_ms=calls, k2_layer_ms=sum(calls.values()))
 
 
+def w4a16_step(engine, prompts):
+    """The W4A16 decode step at the first position over the slab, on a
+    4-bit engine built from ``engine``'s weights: eager (mean of 8 after 2
+    warm-up steps; median and least of 31), device work (one CUDA-graph
+    replay), and K3's six decode calls of a layer one by one."""
+    import chip_smoke as cs
+    from repro_torch.serving.engine import ServingEngine
+    e4 = ServingEngine(engine.cfg, params=engine._raw_params, quant_bits=4,
+                       batch_capacity=engine.batch_capacity,
+                       s_max=engine.s_max, n_max=engine.n_max, device="cuda")
+    params = e4.params_for(4)
+    host = e4._prepare(prompts, [e4.n_max] * len(prompts), 4)[1]
+    cur, cache = e4._prefill(params, host[:, :e4.s_max].to("cuda"))
+
+    def steps(n=8):
+        c = cur
+        for t in range(n):
+            c, _ = e4._decode(params, cache, c, t)
+
+    steps(2)
+    _, step_ms = cs._timed(steps)
+    median, least = eager_ms(lambda: e4._decode(params, cache, cur, 0))
+    dev = cs.device_ms(lambda i: e4._decode(params, cache, cur, 0))
+    del cache, e4, params
+    calls = cs.decode_call_ms("w4a16")
+    return dict(step_ms=step_ms / 8, step_median_ms=median,
+                step_least_ms=least, step_device_ms=dev, k3_calls_ms=calls,
+                k3_layer_ms=sum(calls.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", help="comma-separated checkouts, in turns")
     ap.add_argument("--w8a8", action="store_true",
                     help="also time the W8A8 step and K2's decode calls")
+    ap.add_argument("--w4a16", action="store_true",
+                    help="also time the W4A16 step and K3's decode calls")
     ap.add_argument("--model", choices=("bloom_3b", "bloom_7b1"),
                     default="bloom_3b")
     ap.add_argument("--one", help=argparse.SUPPRESS)
@@ -274,7 +313,7 @@ def main() -> int:
     if args.one:
         tree = Path(args.one).resolve()
         print(json.dumps(one_7b1(tree) if args.model == "bloom_7b1"
-                         else one(tree, args.w8a8)), flush=True)
+                         else one(tree, args.w8a8, args.w4a16)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -284,7 +323,8 @@ def main() -> int:
     for tree in args.trees.split(","):
         out = subprocess.run([sys.executable, __file__, "--one", tree,
                               "--model", args.model]
-                             + (["--w8a8"] if args.w8a8 else []),
+                             + (["--w8a8"] if args.w8a8 else [])
+                             + (["--w4a16"] if args.w4a16 else []),
                              capture_output=True, text=True)
         if out.returncode:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
@@ -318,6 +358,12 @@ def main() -> int:
                   f"quantize_rowwise {a['in_decode']['quantize_rowwise_ms']:.3f}"
                   f", K2 {a['in_decode']['kernel_ms']:.3f}); K2 decode layer "
                   f"{a['k2_layer_ms']:.4f} ms {a['k2_calls_ms']}")
+        if r["w4a16"]:
+            a = r["w4a16"]
+            print(f"    W4A16 step {a['step_ms']:.2f} ms eager (median "
+                  f"{a['step_median_ms']:.2f}, least {a['step_least_ms']:.2f})"
+                  f", {a['step_device_ms']:.3f} ms device; K3 decode layer "
+                  f"{a['k3_layer_ms']:.4f} ms {a['k3_calls_ms']}")
     return 0
 
 

@@ -9,17 +9,48 @@
 // q is int8 (K, N) row-major, or for W4 packed (ceil(K/2), N): packed row
 // p holds row 2p in its low nibble and row 2p+1 in its high nibble.
 //
-// Five kernels; the wrapper (kernels/quant_matmul.py, route) picks one from
+// Six kernels; the wrapper (kernels/quant_matmul.py, route) picks one from
 // the shapes and types before the launch:
 //
-// qmm_skinny (+ qmm_reduce_splits), W8A16 and W4A16 at M <= 8 (decode).
-//   Bound by the weight stream, K*N bytes (K*N/2 for W4) against 3.35 TB/s.
-//   The weights go from device memory straight to registers, each warp
-//   reading whole 32-byte sectors of a weight row for four column groups at
-//   once, and are dequantized in registers; x sits in shared memory and is
-//   broadcast.  To fill all SMs at small N the K axis is split across
-//   blocks; a second kernel adds the partial sums in a fixed order, so the
-//   result does not depend on scheduling.
+// qmm_a16_gemv, W8A16 and W4A16 with bfloat16 x at M <= 8 (decode), where
+//   16-byte loads read the operands (N % 16 == 0, for W4 an even K, q
+//   16-byte and x 4-byte aligned); replaces _mm_kernel_int8 and
+//   _mm_kernel_int4 (src/repro/kernels/quant_matmul.py:62, :79, with
+//   _unpack_int4_tile :46; pallas_call :172) there.  Bound by the bytes,
+//   K*N (K*N/2 for W4) + 2*M*K (x) + 4*N (scales) + 2*M*N (out) against
+//   3.35 TB/s: the weights are nearly all of it.  The design is
+//   qmm_a8_gemv's, so that the weight stream runs at the rate K2's does:
+//   each lane reads the weights straight from device memory in 16-byte
+//   pieces (16 columns of one k row, or of one packed row), 4 pieces a warp
+//   step and GV_DEPTH steps in flight per warp, so a warp streams 2 KB a
+//   step in full 128-byte lines; the arithmetic is bf16 mma.sync m16n8k16
+//   with A = W^T (16 columns x 16 k) and B = x^T (16 k x the 8 rows of x,
+//   zero for rows >= M), float32 sums.  Each int8 weight becomes an exact
+//   bf16 in registers, bf16(128 + low 7 bits) - bf16(128 + 128 sign), and
+//   each signed nibble n one, bf16(128 + (n ^ 8)) - bf16(136): a byte_perm,
+//   one or two lop3 and a bf16x2 subtraction a pair of values, with no
+//   shuffle, because a lane's k rows 4t .. 4t + 3 are the k slots 2t, 2t + 1, 2t + 8, 2t + 9 of
+//   A and of B alike.  A W8 step is 16 k rows (lane t: rows 4t .. 4t + 3);
+//   a W4 step is 32 k rows, 16 packed rows (lane t: packed rows 2t, 2t + 1,
+//   2t + 8, 2t + 9, two mma k-chunks), so both keep 2 KB a warp in flight.
+//   The products are exact in float32; the blocks split K (gemv_a16_plan,
+//   from N, K and bits alone, never from M), the splits of a column tile
+//   form one thread-block cluster and merge by qmm_a8_gemv's reduce-scatter
+//   through distributed shared memory, each block adding its warps in warp
+//   order and each owner the splits in rank order.  Then one
+//   bf16(s[n] * sum) at writeout, as qmm_tc.  One launch, no workspace,
+//   every element summed in one order whatever M is, so each row of an
+//   M = 8 call is bitwise the same row computed alone.
+//
+// qmm_skinny (+ qmm_reduce_splits), W8A16 and W4A16 at M <= 8 where
+//   qmm_a16_gemv does not go: float32 x (the reduced float32 models) and
+//   operands 16-byte loads cannot read.  Bound by the weight stream as
+//   above.  The weights go from device memory straight to registers, each
+//   warp reading whole 32-byte sectors of a weight row for four column
+//   groups at once, and are dequantized in registers; x sits in shared
+//   memory and is broadcast.  To fill all SMs at small N the K axis is
+//   split across blocks; a second kernel adds the partial sums in a fixed
+//   order, so the result does not depend on scheduling.
 //
 // qmm_a8_gemv, W8A8 at M <= 8 (decode); replaces _mm_kernel_w8a8 there.
 //   Bound by the bytes, K*N + M*K + 4*(M + N) + 2*M*N (bf16 out) against
@@ -436,6 +467,209 @@ qmm_a8_gemv(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     for (int b = 0; b < GV_MAX_SPLITS; ++b)
       if (b < splits) s += recv[b * chunk + e - e0];
     out[(size_t)m * N + c] = a8_out<TO>(s, sx[m], sw[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// W8A16 / W4A16 GEMV (M <= 8, bf16 x): qmm_a8_gemv's skeleton, with the
+// weights made exact bf16 in registers for the bf16 mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int GV_KSTEP4 = 32;      // k rows of a W4 warp step: 16 packed rows, 4 a lane
+
+// d (16x8 f32) += a (16x16 bf16) x b (16x8 bf16).  Lane (g, t) holds
+// a0 = A[g][2t, 2t + 1], a1 = A[g + 8][2t, 2t + 1], a2 = A[g][2t + 8, 2t + 9],
+// a3 = A[g + 8][2t + 8, 2t + 9], b0 = B[2t, 2t + 1][g], b1 = B[2t + 8, 2t + 9][g],
+// d as mma_s8_16816's
+__device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t x, uint32_t y) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&y));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// bytes i of a and b (int8 values) -> their bf16x2, a's in the low half,
+// exact: with s the sign bit and l the low 7 bits of a byte, its value is
+// bf16(128 + l) - bf16(128 + 128 s), three numbers bf16 holds exactly
+__device__ __forceinline__ uint32_t i8pair_bf16x2(uint32_t a, uint32_t b, int i) {
+  const uint32_t p = __byte_perm(a, b, (uint32_t)(i | i << 4 | (4 + i) << 8 | (4 + i) << 12));
+  return bf16x2_sub((p & 0x007F007Fu) | 0x43004300u, (p & 0x00800080u) | 0x43004300u);
+}
+
+// byte i of a packed int4 word w (w4 = w >> 4) -> the bf16x2 of its two
+// signed nibbles, the low nibble (the even k row) in the low half, exact:
+// with n a nibble's bits and u = n ^ 8, its value is bf16(128 + u) - bf16(136)
+__device__ __forceinline__ uint32_t nib_bf16x2(uint32_t w, uint32_t w4, int i) {
+  const uint32_t p = __byte_perm(w, w4, (uint32_t)(i | (4 + i) << 8));
+  return bf16x2_sub(((p & 0x000F000Fu) | 0x43004300u) ^ 0x00080008u, 0x43084308u);
+}
+
+// One W8 warp step: the lane's pieces w (k rows 4t .. 4t + 3 of its 16
+// columns) times x^T (xb: x[g][4t .. 4t + 3]).  A lane's k rows 4t, 4t + 1,
+// 4t + 2, 4t + 3 are the k slots 2t, 2t + 1, 2t + 8, 2t + 9 of A and of B
+// alike; mma p takes columns 2p and 2p + 1 as A's rows g and g + 8, so D
+// register r of mma p is column 16 g + 2 p + r / 2 of row 2 t + r % 2.
+__device__ __forceinline__ void a16_step_w8(float (&acc)[8][4], const uint4 (&w)[4],
+                                            const uint2 (&xb)[1]) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int wi = p >> 1, b0 = 2 * (p & 1);       // columns 2p, 2p + 1: bytes b0, b0 + 1
+    const uint32_t r0 = word_of(w[0], wi), r1 = word_of(w[1], wi);
+    const uint32_t r2 = word_of(w[2], wi), r3 = word_of(w[3], wi);
+    mma_bf16_16816(acc[p], i8pair_bf16x2(r0, r1, b0), i8pair_bf16x2(r0, r1, b0 + 1),
+                   i8pair_bf16x2(r2, r3, b0), i8pair_bf16x2(r2, r3, b0 + 1), xb[0].x, xb[0].y);
+  }
+}
+
+// One W4 warp step, two mma k-chunks of 16 rows: chunk c's packed rows
+// 8c + 2t and 8c + 2t + 1 (pieces w[2c], w[2c + 1]) hold its k rows
+// 4t .. 4t + 3, the same k slots as a W8 step's, times xb[c].
+__device__ __forceinline__ void a16_step_w4(float (&acc)[8][4], const uint4 (&w)[4],
+                                            const uint2 (&xb)[2]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {
+      const uint32_t r0 = word_of(w[2 * c], wi), r1 = word_of(w[2 * c + 1], wi);
+      const uint32_t s0 = r0 >> 4, s1 = r1 >> 4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)                  // mma 2 wi + h: bytes 2h, 2h + 1
+        mma_bf16_16816(acc[2 * wi + h], nib_bf16x2(r0, s0, 2 * h), nib_bf16x2(r0, s0, 2 * h + 1),
+                       nib_bf16x2(r1, s1, 2 * h), nib_bf16x2(r1, s1, 2 * h + 1), xb[c].x,
+                       xb[c].y);
+    }
+}
+
+// one lane's weight pieces of a warp step whose lane rows start at k row
+// k0 (= the step's first row + 4 t): W8 rows k0 .. k0 + 3; W4 the packed
+// rows of k rows k0, k0 + 2, k0 + 16, k0 + 18.  N % 16 == 0 and (W4) K and
+// ke even, so a piece is all in or all out; out reads as zero.
+template <int BITS>
+__device__ __forceinline__ void a16_load_q(const int8_t* __restrict__ q, int N, int ke, int k0,
+                                           int n, uint4 (&w)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = BITS == 4 ? k0 + 2 * (i & 1) + 16 * (i >> 1) : k0 + i;
+    w[i] = k < ke && n < N ? ldg_stream(q + (size_t)(BITS == 4 ? k >> 1 : k) * N + n)
+                           : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// x[g][k .. k + 3] (k % 4 == 0) as two bf16x2 words, zero past ke and for
+// rows g >= M; 4-byte loads where K is even (x is then 4-byte aligned, and
+// so is ke), element loads where it is odd
+__device__ __forceinline__ uint2 a16_load_x(const __nv_bfloat16* __restrict__ x, int M, int K,
+                                            int ke, int k, int g) {
+  if (g >= M) return make_uint2(0, 0);
+  const unsigned short* row = reinterpret_cast<const unsigned short*>(x) + (size_t)g * K;
+  if ((K & 1) == 0)
+    return make_uint2(k < ke ? __ldg(reinterpret_cast<const unsigned*>(row + k)) : 0u,
+                      k + 2 < ke ? __ldg(reinterpret_cast<const unsigned*>(row + k + 2)) : 0u);
+  uint32_t v[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (k + i < ke) v[i >> 1] |= (uint32_t)__ldg(row + k + i) << (16 * (i & 1));
+  return make_uint2(v[0], v[1]);
+}
+
+// grid (column tiles, splits), cluster (1, splits), as qmm_a8_gemv: block
+// (x, y) sums k in [y k_per_split, min(K, (y + 1) k_per_split)) for
+// columns 128 x .. 128 x + 127, and the cluster's blocks write the tile out
+// together, each adding every split's sums for its share in rank order
+template <int BITS>
+__global__ void __launch_bounds__(GV_WARPS * 32)
+qmm_a16_gemv(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+             const float* __restrict__ sw, __nv_bfloat16* __restrict__ out, int M, int N, int K,
+             int k_per_split) {
+  constexpr int KSTEP = BITS == 4 ? GV_KSTEP4 : GV_KSTEP;
+  constexpr int XC = BITS == 4 ? 2 : 1;            // mma k-chunks of a step
+  __shared__ float part[GV_WARPS][32 * 32];        // each warp's sums, [register][lane]
+  __shared__ float recv[32 * 32 + GV_MAX_SPLITS];  // every split's sums of this block's share
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * GV_BN, n = n0 + 16 * g;
+  const int kb = blockIdx.y * k_per_split, ke = min(K, kb + k_per_split);
+  const int steps = (ke - kb + KSTEP - 1) / KSTEP;
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[p][r] = 0.f;
+
+  // the warp takes the block's steps warp, warp + GV_WARPS, ..., with
+  // GV_DEPTH of them in flight while one is summed
+  uint4 w[GV_DEPTH][4];
+  uint2 xw[GV_DEPTH][XC];
+#pragma unroll
+  for (int d = 0; d < GV_DEPTH; ++d)
+    a16_load_q<BITS>(q, N, ke, kb + (warp + d * GV_WARPS) * KSTEP + 4 * t, n, w[d]);
+#pragma unroll
+  for (int d = 0; d < GV_DEPTH; ++d)
+#pragma unroll
+    for (int c = 0; c < XC; ++c)
+      xw[d][c] = a16_load_x(x, M, K, ke, kb + (warp + d * GV_WARPS) * KSTEP + 16 * c + 4 * t, g);
+  for (int j0 = warp; j0 < steps; j0 += GV_DEPTH * GV_WARPS) {
+#pragma unroll
+    for (int d = 0; d < GV_DEPTH; ++d) {
+      // this step's pieces, then the next loads, which go out before the
+      // sums so that GV_DEPTH steps stay in flight (4-5 % on BLOOM's layers)
+      uint4 cw[4];
+      uint2 cx[XC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cw[i] = w[d][i];
+#pragma unroll
+      for (int c = 0; c < XC; ++c) cx[c] = xw[d][c];
+      const int k0 = kb + (j0 + (d + GV_DEPTH) * GV_WARPS) * KSTEP + 4 * t;
+      a16_load_q<BITS>(q, N, ke, k0, n, w[d]);
+#pragma unroll
+      for (int c = 0; c < XC; ++c) xw[d][c] = a16_load_x(x, M, K, ke, k0 + 16 * c, g);
+      if constexpr (BITS == 4) {
+        // a step past the split's end is all zero: W4 skips its sums (3 %;
+        // at W8 that is slower)
+        if (j0 + d * GV_WARPS < steps) a16_step_w4(acc, cw, cx);
+      } else {
+        a16_step_w8(acc, cw, cx);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) part[warp][(4 * p + r) * 32 + lane] = acc[p][r];
+  __syncthreads();
+  // the reduce-scatter of qmm_a8_gemv, on float sums: each block adds its
+  // warps in warp order, and the owner of an element adds the splits in
+  // rank order, so every element's sum has one order whatever M is
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int chunk = (32 * 32 + splits - 1) / splits;
+  for (int e = tid; e < 32 * 32; e += GV_WARPS * 32) {
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < GV_WARPS; ++v) s += part[v][e];
+    cluster.map_shared_rank(recv, e / chunk)[rank * chunk + e % chunk] = s;
+  }
+  cluster.sync();
+  const int e0 = rank * chunk, e1 = min(32 * 32, e0 + chunk);
+  for (int e = e0 + tid; e < e1; e += GV_WARPS * 32) {
+    const int r = (e >> 5) & 3;
+    const int m = 2 * (e & 3) + (r & 1);
+    const int c = n0 + 16 * ((e >> 2) & 7) + 2 * (e >> 7) + (r >> 1);
+    if (m >= M || c >= N) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int b = 0; b < GV_MAX_SPLITS; ++b)
+      if (b < splits) s += recv[b * chunk + e - e0];
+    out[(size_t)m * N + c] = __float2bfloat16_rn(__fmul_rn(sw[c], s));
   }
 }
 
@@ -1112,6 +1346,31 @@ int launch_a8_gemv(const int8_t* xq, const float* sx, const int8_t* q, const flo
   return (int)cudaGetLastError();
 }
 
+template <int BITS>
+int launch_a16_gemv(const void* x, const int8_t* q, const float* sw, void* out, int M, int N,
+                    int K, int splits, int k_per_split, cudaStream_t stream) {
+  constexpr int KSTEP = BITS == 4 ? GV_KSTEP4 : GV_KSTEP;
+  if (M < 1 || M > GV_ROWS || N % 16 != 0 || (BITS == 4 && K % 2 != 0) || splits < 1 ||
+      splits > GV_MAX_SPLITS || k_per_split % KSTEP != 0 || (long long)splits * k_per_split < K)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, splits);
+  cfg.blockDim = dim3(GV_WARPS * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_a16_gemv<BITS>,
+                                           static_cast<const __nv_bfloat16*>(x), q, sw,
+                                           static_cast<__nv_bfloat16*>(out), M, N, K, k_per_split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1131,6 +1390,19 @@ int qmm_a16(const void* x, const void* q, const void* scale, void* out,
   }
   return bf16 ? launch<MODE_W8, __nv_bfloat16, __nv_bfloat16>(x, nullptr, qp, sp, out, partial, M, N, K, splits, k_per_split, st)
               : launch<MODE_W8, float, float>(x, nullptr, qp, sp, out, partial, M, N, K, splits, k_per_split, st);
+}
+
+// W8A16 (bits 8) / W4A16 (bits 4) at M <= 8 with bfloat16 x and out:
+// qmm_a16_gemv over ``splits`` blocks of k_per_split (a multiple of 16, or
+// 32 for bits 4) per column tile.  N % 16 == 0, K even for bits 4, q 16-byte
+// and x 4-byte aligned.
+int qmm_a16_gemv(const void* x, const void* q, const void* scale, void* out, int M, int N,
+                 int K, int bits, int splits, int k_per_split, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const int8_t*>(q);
+  auto sp = static_cast<const float*>(scale);
+  return bits == 4 ? launch_a16_gemv<4>(x, qp, sp, out, M, N, K, splits, k_per_split, st)
+                   : launch_a16_gemv<8>(x, qp, sp, out, M, N, K, splits, k_per_split, st);
 }
 
 // W8A16 (bits 8) / W4A16 (bits 4) on the tensor cores: x and out bfloat16,

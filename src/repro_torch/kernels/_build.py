@@ -84,6 +84,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     sigs = {
         "qmm_a16": (P, P, P, P, P, I, I, I, I, I, I, I, P),
         "qmm_a16_tc": (P, P, P, P, I, I, I, I, P),
+        "qmm_a16_gemv": (P, P, P, P, I, I, I, I, I, I, P),
         "qmm_a8": (P, P, P, P, P, I, I, I, I, I, I, I, P),
         "qmm_a8_tc": (P, P, P, P, P, I, I, I, I, P),
         "flash_decode": (P, P, P, P, I, P, P, I, I, I, I, I, F, I, I, P),

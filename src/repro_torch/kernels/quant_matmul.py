@@ -6,9 +6,10 @@ The kernels (``csrc/quant_matmul.cu``) replace the Pallas TPU kernels of
 ``_mm_kernel_w8a8``).  ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
 launch them on CUDA tensors and count their launches in ``LAUNCHES``
 (``w8a16_tc`` / ``w4a16_tc`` / ``w8a8_tc`` count the tensor-core launches,
-and ``w8a8_gemv`` the W8A8 GEMV's at M <= 8, a second time, beside
-``w8a16`` / ``w4a16`` / ``w8a8``); ``route`` is the plan that picks the
-kernel, ``gemv_a8_plan`` the W8A8 GEMV's grid and split of K;
+and ``w8a16_gemv`` / ``w4a16_gemv`` / ``w8a8_gemv`` the GEMVs' at M <= 8,
+a second time, beside ``w8a16`` / ``w4a16`` / ``w8a8``); ``route`` is the
+plan that picks the kernel, ``gemv_a16_plan`` and ``gemv_a8_plan`` the
+GEMVs' grids and splits of K;
 ``quant_matmul_plain`` / ``quant_matmul_a8_plain`` are the same functions in
 plain PyTorch (twins of ``repro/kernels/ref.py``), which the CPU path and
 the on-card comparisons use.
@@ -29,18 +30,19 @@ from repro_torch.kernels import _build
 from repro_torch.quant.ptq import unpack_int4
 
 LAUNCHES = {"w8a16": 0, "w4a16": 0, "w8a8": 0, "w8a16_tc": 0, "w4a16_tc": 0,
-            "w8a8_tc": 0, "w8a8_gemv": 0}
+            "w8a8_tc": 0, "w8a16_gemv": 0, "w4a16_gemv": 0, "w8a8_gemv": 0}
 
 _SKINNY_ROWS = 8        # csrc: SK_ROWS, rows of x per skinny block
 _SKINNY_COLS = 128      # csrc: SK_BN, columns per skinny block
 _SPLIT_QUANTUM = 256    # csrc: SK_KC, k values staged per pass
 _TARGET_BLOCKS = 264    # two blocks for each of the H100's 132 SMs
 
-# the W8A8 GEMV (qmm_a8_gemv), constants of csrc/quant_matmul.cu, which the
-# CPU tests hold equal to these
+# the GEMVs (qmm_a8_gemv, qmm_a16_gemv), constants of csrc/quant_matmul.cu,
+# which the CPU tests hold equal to these
 GV_WARPS = 4            # GV_WARPS, warps of a block
 GV_BN = 128             # GV_BN, columns of a block: 8 lane groups x 16
 GV_KSTEP = 16           # GV_KSTEP, k rows of a warp step: 4 lanes x 4 rows
+GV_KSTEP4 = 32          # GV_KSTEP4, k rows of a W4 step: 16 packed rows
 GV_MAX_SPLITS = 8       # GV_MAX_SPLITS, blocks of a cluster
 
 
@@ -100,21 +102,46 @@ class GemvPlan(NamedTuple):
     workspace_bytes: int        # device scratch the launch needs
 
 
+def _gemv_plan(N: int, K: int, kstep: int) -> GemvPlan:
+    """Enough blocks to cover the SMs twice, at most a cluster's
+    ``GV_MAX_SPLITS`` splits of a column tile, each a multiple of ``kstep``
+    k rows and at least one warp step for each of the block's warps.  The
+    splits of a tile merge inside their cluster: no workspace."""
+    tiles = -(-N // GV_BN)
+    steps = -(-K // kstep)
+    want = max(1, min(GV_MAX_SPLITS, -(-_TARGET_BLOCKS // max(tiles, 1)),
+                      -(-steps // GV_WARPS)))
+    kps = max(1, -(-steps // want)) * kstep
+    return GemvPlan((tiles, max(1, -(-K // kps))), kps, 0)
+
+
 @lru_cache(maxsize=None)
 def gemv_a8_plan(M: int, N: int, K: int) -> GemvPlan:
     """Grid and split of K of the W8A8 GEMV (M <= 8), from the shapes
-    alone: enough blocks to cover the SMs twice, at most a cluster's
-    ``GV_MAX_SPLITS`` splits of a column tile, each a multiple of
-    ``GV_KSTEP`` k rows and at least one warp step for each of the block's
-    warps.  The splits of a tile merge inside their cluster: no workspace."""
+    alone, in steps of ``GV_KSTEP`` k rows."""
     if M > _SKINNY_ROWS:
         raise ValueError(f"the W8A8 GEMV takes M <= {_SKINNY_ROWS}, got {M}")
-    tiles = -(-N // GV_BN)
-    steps = -(-K // GV_KSTEP)
-    want = max(1, min(GV_MAX_SPLITS, -(-_TARGET_BLOCKS // max(tiles, 1)),
-                      -(-steps // GV_WARPS)))
-    kps = max(1, -(-steps // want)) * GV_KSTEP
-    return GemvPlan((tiles, max(1, -(-K // kps))), kps, 0)
+    return _gemv_plan(N, K, GV_KSTEP)
+
+
+@lru_cache(maxsize=None)
+def gemv_a16_plan(N: int, K: int, bits: int) -> GemvPlan:
+    """Grid and split of K of the W8A16 / W4A16 GEMV, from N, K and bits
+    alone (never from M, so that each row of a call is the same row
+    computed alone), in steps of ``GV_KSTEP`` k rows, or ``GV_KSTEP4`` at
+    bits 4."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}")
+    return _gemv_plan(N, K, GV_KSTEP4 if bits == 4 else GV_KSTEP)
+
+
+def gemv_a16_wide(x: torch.Tensor, q: torch.Tensor, bits: int) -> bool:
+    """Whether the W8A16 / W4A16 GEMV can read q in 16-byte pieces and x
+    in 4-byte words: N % 16 == 0, an even K at bits 4, q 16-byte and x
+    4-byte aligned.  The others, like float32 x, stay on ``qmm_skinny``."""
+    K, N = x.shape[1], q.shape[1]
+    return (N % 16 == 0 and (bits == 8 or K % 2 == 0)
+            and q.data_ptr() % 16 == 0 and x.data_ptr() % 4 == 0)
 
 
 def gemv_wide(xq: torch.Tensor, q: torch.Tensor) -> bool:
@@ -130,7 +157,8 @@ def route(M: int, K: int, N: int, dtype: torch.dtype, bits: int,
           aligned: bool = True) -> str:
     """Which kernel ``quant_matmul_cuda`` / ``quant_matmul_a8_cuda``
     launches, from shapes and types alone: "skinny" at M <= 8 (decode:
-    ``qmm_skinny``, or ``qmm_a8_gemv`` for int8 xq);
+    ``qmm_a16_gemv`` for bfloat16 x whose operands ``gemv_a16_wide``
+    takes, ``qmm_a8_gemv`` for int8 xq, ``qmm_skinny`` for the rest);
     "tc", a tensor-core kernel, at M > 8 where the TMA can read the
     operands (16-byte aligned bases and row strides: N % 16 == 0 for q and
     the output, and K % 8 == 0 for bfloat16 x, K % 16 == 0 for the W8A8
@@ -180,6 +208,16 @@ def quant_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         _build.check(rc, "qmm_a16_tc")
         LAUNCHES[name] += 1
         LAUNCHES[name + "_tc"] += 1
+        return out
+    if (M <= _SKINNY_ROWS and x.dtype == torch.bfloat16
+            and gemv_a16_wide(x, q, bits)):
+        plan = gemv_a16_plan(N, K, bits)
+        rc = lib.qmm_a16_gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                              out.data_ptr(), M, N, K, bits, plan.grid[1],
+                              plan.k_per_split, stream)
+        _build.check(rc, "qmm_a16_gemv")
+        LAUNCHES[name] += 1
+        LAUNCHES[name + "_gemv"] += 1
         return out
     splits, kps = _splits(M, N, K)
     partial = torch.empty((splits, M, N) if splits > 1 else (0,),

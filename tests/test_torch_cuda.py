@@ -295,6 +295,128 @@ def test_w8a8_gemv_counts_every_call_at_m_le_8(cuda):
             xq, sx, q, s, torch.bfloat16))
 
 
+# the W8A16 / W4A16 GEMV (qmm_a16_gemv, bf16 x at M <= 8): BLOOM-3B's and
+# BLOOM-7B1's decode shapes (K, N), and 16-column-aligned ragged ones (K not
+# a multiple of a step or of a split, N not of 128; odd K at bits 8 only)
+A16_GEMV_KN = [(2560, 2560), (2560, 10240), (10240, 2560), (4096, 4096),
+               (4096, 16384), (16384, 4096), (80, 208), (1040, 400),
+               (256, 96), (34, 64), (83, 96)]
+
+
+def _a16_gemv_cases(kns):
+    return [(bits, K, N) for bits in (8, 4) for K, N in kns
+            if bits == 8 or K % 2 == 0]
+
+
+def _a16_gemv_inputs(M, K, N, bits, device, seed=0):
+    """bf16 x; weights over their full range (every int8 value, every
+    nibble), scales that keep the outputs of order 1."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    rows = (K + 1) // 2 if bits == 4 else K
+    q = torch.from_numpy(rng.integers(-128, 128, size=(rows, N),
+                                      dtype=np.int8))
+    mean_sq = 21.5 if bits == 4 else 5461.5           # E[q^2] of the values
+    s = torch.from_numpy(((rng.random(N) + 0.5) / np.sqrt(K * mean_sq))
+                         .astype(np.float32))
+    return (x.to(torch.bfloat16).to(device), q.to(device), s.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K,N", _a16_gemv_cases(A16_GEMV_KN))
+@pytest.mark.parametrize("M", [1, 3, 8])
+def test_quant_matmul_a16_gemv_vs_plain(cuda, M, bits, K, N):
+    x, q, s = _a16_gemv_inputs(M, K, N, bits, cuda, seed=K + N + M + bits)
+    assert tqm.route(M, K, N, torch.bfloat16, bits) == "skinny"
+    assert tqm.gemv_a16_wide(x, q, bits)
+    name = "w4a16" if bits == 4 else "w8a16"
+    ops.reset_launch_counts()
+    got = tqm.quant_matmul_cuda(x, q, s, bits)
+    counts = ops.launch_counts()
+    assert counts[name + "_gemv"] == counts[name] == 1
+    assert counts[name + "_tc"] == 0
+    torch.testing.assert_close(got, tqm.quant_matmul_plain(x, q, s, bits),
+                               **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K,N", _a16_gemv_cases(
+    [(2560, 2560), (10240, 2560), (4096, 16384), (1040, 400), (83, 96)]))
+def test_quant_matmul_a16_gemv_rows_invariant_and_deterministic(cuda, bits,
+                                                                K, N):
+    """Row r of an M = 8 call equals the same row computed alone, bitwise;
+    two calls are equal, and so are an eager call and a CUDA-graph
+    replay."""
+    x, q, s = _a16_gemv_inputs(8, K, N, bits, cuda, seed=5)
+    full = tqm.quant_matmul_cuda(x, q, s, bits)
+    assert torch.equal(full, tqm.quant_matmul_cuda(x, q, s, bits))
+    for r in range(8):
+        alone = tqm.quant_matmul_cuda(x[r:r + 1].contiguous(), q, s, bits)
+        assert torch.equal(alone[0], full[r]), r
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tqm.quant_matmul_cuda(x, q, s, bits)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tqm.quant_matmul_cuda(x, q, s, bits)
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, N, x dtype, bits, offset of x, offset of q in elements): float32
+    # x, x or q off its boundary, N % 16 != 0, odd K at bits 4
+    (8, 2560, 2560, torch.float32, 8, 0, 0),
+    (8, 2560, 2560, torch.float32, 4, 0, 0),
+    (8, 2560, 256, torch.bfloat16, 8, 1, 0),
+    (8, 2560, 256, torch.bfloat16, 4, 1, 0),
+    (3, 256, 96, torch.bfloat16, 8, 0, 4),
+    (3, 256, 96, torch.bfloat16, 4, 0, 8),
+    (8, 80, 200, torch.bfloat16, 8, 0, 0),
+    (8, 83, 96, torch.bfloat16, 4, 0, 0)])
+def test_quant_matmul_narrow_decode_calls_stay_on_skinny(cuda, case):
+    """What 16-byte loads cannot read, and float32 x, stay on qmm_skinny,
+    within the same tolerances as before."""
+    M, K, N, dt, bits, off_x, off_q = case
+    x, q, s = _a16_gemv_inputs(M, K, N, bits, cuda, seed=9)
+    bx = torch.empty(x.numel() + off_x, dtype=dt, device=cuda)
+    xo = bx[off_x:].view(M, K)
+    xo.copy_(x)
+    bq = torch.empty(q.numel() + off_q, dtype=torch.int8, device=cuda)
+    qo = bq[off_q:].view(q.shape)
+    qo.copy_(q)
+    name = "w4a16" if bits == 4 else "w8a16"
+    ops.reset_launch_counts()
+    got = tqm.quant_matmul_cuda(xo, qo, s, bits)
+    counts = ops.launch_counts()
+    assert counts[name] == 1 and counts[name + "_gemv"] == 0
+    torch.testing.assert_close(got, tqm.quant_matmul_plain(xo, q, s, bits),
+                               **(BF16_TOL if dt == torch.bfloat16
+                                  else dict(rtol=1e-4, atol=1e-4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_a16_gemv_counts_every_wide_bf16_call_at_m_le_8(cuda, bits):
+    name = "w4a16" if bits == 4 else "w8a16"
+    for M in (1, 4, 8, 9, 16):
+        x, q, s = _a16_gemv_inputs(M, 256, 128, bits, cuda, seed=M)
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_cuda(x, q, s, bits)
+        counts = ops.launch_counts()
+        assert counts[name] == 1
+        assert counts[name + "_gemv"] == int(M <= 8), M
+        torch.testing.assert_close(got, tqm.quant_matmul_plain(x, q, s,
+                                                               bits),
+                                   **BF16_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # (M, K, N, x dtype, bits, offset of x in elements): the plan's tiled
