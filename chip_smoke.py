@@ -72,6 +72,19 @@ Phases (any failure exits non-zero and prints no result):
    gives their device time and share inside the step.  Every W8A8 call at
    M <= 8 must have run the GEMV (its counter ``w8a8_gemv``), and so must
    every W8A16 and W4A16 call at M <= 8 (``w8a16_gemv``, ``w4a16_gemv``).
+   Every served path runs its decode steps as the device loop (a captured
+   step in the WHILE node of ``csrc/decode_loop.cu``; ``decode_loop``
+   counts its launches, and each iteration adds the step's kernel
+   launches when the loop's count is read back).  At each precision
+   ``generate`` runs with the engine's eager loop and with the device loop
+   in the same call, in turns (three at W8A16, one at W8A8, W4A16 and
+   bf16): ms, ms a step, the capture ms and the idle share against the
+   step's device time; their tokens must be equal.  One decode step of
+   each loop is traced with ``torch.profiler``: the top 15 device ops and
+   the device busy share.  One cohort whose row 0 emits the EOS at step 3
+   (the others capped at 16) must stop where ``generate_reference``'s
+   loop stops: the same tokens, and as many loop iterations and the same
+   ``t`` as the oracle's steps.
 6. Continuous slice: the same W8 engine serves through ``ContinuousRuntime``
    + ``EngineContinuousExecutor`` over a paged KV arena of half the slab's
    pages (``dftsp``, chunk k = 16), counted on its own: the paged decode
@@ -79,7 +92,8 @@ Phases (any failure exits non-zero and prints no result):
    are conserved and every page is back on the free list after the drain.
    On the same engine, chunked decode over the arena, chunked decode over
    the slab and ``generate`` give bitwise equal tokens, and so do a paged
-   and a slab cohort refilled at step 40.
+   and a slab cohort refilled at step 40; a full paged cohort runs with
+   the eager loop and with the device loop in three turns.
 7. BLOOM-7B1 (30 layers, d_model 4096, 32 heads of 128, bf16), once
    BLOOM-3B's engines are freed, on a W8 engine (B = 8, s' = 512, n_max =
    128), each path counted on its own: ``dftsp`` epochs at W8A16 (K6 and
@@ -92,8 +106,10 @@ Phases (any failure exits non-zero and prints no result):
    reported apart).  ``generate == generate_reference`` and paged == slab
    == ``generate`` (with a cohort refilled at step 40) at W8A16 and W8A8.
    The decode step is timed eager and as one CUDA graph, fused and with the
-   fused gate forced off.  W8A16 and W8A8 must hold one kept embedding
-   table between them; the kept tables' bytes per precision are printed.
+   fused gate forced off; ``generate`` at W8A16 and W8A8 and a paged
+   W8A16 cohort with the eager loop against the device loop, once each.
+   W8A16 and W8A8 must hold one kept embedding table between them; the
+   kept tables' bytes per precision are printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -101,6 +117,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -1434,17 +1451,208 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+@contextlib.contextmanager
+def eager_loop(engine):
+    """While active, the engine's loop runs eagerly: its ``_advance_eager``,
+    the loop the CPU runs (one ATen op after another), in place of the
+    device loop, so that the two are timed in the same call."""
+    engine._advance = engine._advance_eager
+    try:
+        yield
+    finally:
+        del engine._advance
+
+
+def loop_timing(engine, prompts, bits, label, turns=1, arena=None,
+                pre_ms=None, dev_ms=None):
+    """``generate`` (with ``arena``: a paged cohort driven to its end by
+    ``generate_via_chunks`` at k = n_max, which captures its loop anew)
+    with the eager loop and with the device loop, in turns (eager first in
+    even turns), after one replayed run that captures what it needs:
+    each run's ms; ms per decode step past the prefill (``pre_ms``), over
+    the steps each loop runs (the eager loop all min(n_max, max cap) of
+    them, the device loop up to its early exit); the idle share of a step
+    against its device time ``dev_ms``; the captures' ms.  Eager and
+    replayed tokens must be equal."""
+    import numpy as np
+    caps = [engine.n_max] * len(prompts)
+
+    def run():
+        if arena is None:
+            return engine.generate(prompts, caps, quant_bits=bits)
+        return engine.generate_via_chunks(prompts, caps, k=engine.n_max,
+                                          quant_bits=bits, arena=arena)
+
+    n0 = len(engine.captures)
+    want, first_ms = _timed(run)
+    eager, replayed = [], []
+    for turn in range(turns):
+        for is_eager in ((True, False) if turn % 2 == 0 else (False, True)):
+            if is_eager:
+                with eager_loop(engine):
+                    got, ms = _timed(run)
+                eager.append(ms)
+            else:
+                got, ms = _timed(run)
+                replayed.append(ms)
+            check(np.array_equal(got.tokens, want.tokens)
+                  and np.array_equal(got.lengths, want.lengths),
+                  f"{label}: the eager and the device loop differ")
+    captures = [c["ms"] for c in engine.captures[n0:]]
+    steps = {"eager": min(engine.n_max, max(caps)),
+             "replayed": int(want.lengths.max())}
+    out = dict(eager_ms=eager, replayed_ms=replayed,
+               first_replayed_ms=first_ms, capture_ms=captures,
+               steps=steps)
+    if pre_ms is not None:
+        for name, runs in (("eager", eager), ("replayed", replayed)):
+            per = (min(runs) - pre_ms) / steps[name]
+            out[f"{name}_ms_per_step"] = per
+            if dev_ms is not None:
+                out[f"{name}_idle_share"] = 1.0 - dev_ms / per
+    log(f"loop: {engine.cfg.arch_id} {label}: generate eager "
+        f"{[round(x, 1) for x in eager]} ms, replayed "
+        f"{[round(x, 1) for x in replayed]} ms (first replayed run "
+        f"{first_ms:.1f} ms, captures {[round(c, 1) for c in captures]} "
+        f"ms); steps {steps}"
+        + (f"; per step eager {out['eager_ms_per_step']:.3f} ms, replayed "
+           f"{out['replayed_ms_per_step']:.3f} ms" if pre_ms is not None
+           else "")
+        + (f"; idle share eager {out['eager_idle_share']:.3f}, replayed "
+           f"{out['replayed_idle_share']:.3f} (device step {dev_ms:.3f} ms)"
+           if pre_ms is not None and dev_ms is not None else ""))
+    return out
+
+
+def _kernel_events(prof):
+    """(name, start us, end us) of every device kernel in a profile."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def trace_steps(engine, prompts, bits=8, top: int = 15):
+    """One eager and one replayed decode step of a full cohort under
+    ``torch.profiler``: the ``top`` device ops by summed time, the number
+    of kernels, and the device busy share (the union of the kernels'
+    intervals over the span from the first kernel's start to the last
+    one's end).  With no device events in the trace, the step is timed by
+    CUDA events instead, and no breakdown is given."""
+    from torch.profiler import ProfilerActivity, profile
+    st = engine.start_chunked(prompts, [engine.n_max] * len(prompts),
+                              quant_bits=bits)
+    st = engine.generate_chunked(st, 1)             # captures its loop
+    engine.poll_chunked(st, with_tokens=False)
+    out = {}
+    for label in ("eager", "replayed"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            if label == "eager":
+                with eager_loop(engine):
+                    st = engine.generate_chunked(st, 1)
+            else:
+                st = engine.generate_chunked(st, 1)
+            end.record()
+            torch.cuda.synchronize()
+        _, _, _, t = engine.poll_chunked(st, with_tokens=False)
+        events = _kernel_events(prof)
+        rec = dict(event_ms=start.elapsed_time(end), t=t,
+                   kernels=len(events))
+        if events:
+            events.sort(key=lambda e: e[1])
+            busy, cur_s, cur_e = 0.0, events[0][1], events[0][2]
+            for _, a, b in events[1:]:
+                if a > cur_e:
+                    busy += cur_e - cur_s
+                    cur_s, cur_e = a, b
+                else:
+                    cur_e = max(cur_e, b)
+            busy += cur_e - cur_s
+            span = max(e[2] for e in events) - events[0][1]
+            by_name = {}
+            for name, a, b in events:
+                by_name[name] = by_name.get(name, 0.0) + (b - a)
+            rec.update(span_ms=span / 1e3, busy_ms=busy / 1e3,
+                       busy_share=busy / span if span else None,
+                       top=[(name[:90], round(us / 1e3, 4),
+                             round(us / busy, 4))
+                            for name, us in sorted(by_name.items(),
+                                                   key=lambda kv: -kv[1])
+                            [:top]])
+            log(f"trace: {engine.cfg.arch_id} {label} step: {len(events)} "
+                f"kernels over {span / 1e3:.3f} ms, busy {busy / 1e3:.3f} "
+                f"ms (busy share {busy / span:.3f}); top {top} by time "
+                f"(name, ms, share of busy): {rec['top']}")
+        else:
+            log(f"trace: {engine.cfg.arch_id} {label} step: key_averages() "
+                f"show no device time; CUDA events: "
+                f"{rec['event_ms']:.3f} ms")
+        out[label] = rec
+    return out
+
+
+def early_eos_phase(engine, prompts, kw):
+    """One cohort that stops early: ``eos_id`` is the token that
+    ``generate_reference`` emits in row 0 at step 3, the other rows' caps
+    are 16.  On an engine with that ``eos_id`` (the engine's weights),
+    ``generate`` and a chunked cohort driven in one segment of n_max must
+    give the oracle's tokens and lengths, and their device loops must run
+    as many iterations as the oracle's loop (its longest row); the eager
+    loop runs all n_max steps, so its time beside the device loop's is the
+    cost of dead steps that the early exit saves."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    caps = [engine.n_max] + [16] * (len(prompts) - 1)
+    eos = int(engine.generate_reference(prompts, caps).tokens[0, 3])
+    eng = ServingEngine(engine.cfg, params=engine._raw_params, eos_id=eos,
+                        quant_bits=8, **kw)
+    ref = eng.generate_reference(prompts, caps)
+    steps = int(ref.lengths.max())
+    got, first_ms = _timed(lambda: eng.generate(prompts, caps))
+    loop = eng._gen.graphs[8]
+    check(np.array_equal(got.tokens, ref.tokens)
+          and np.array_equal(got.lengths, ref.lengths),
+          f"early EOS {eos}: generate != generate_reference")
+    iters = loop.counted
+    check(iters == int(loop.iters) == steps,
+          f"early EOS: the device loop ran {iters} iterations, the "
+          f"oracle's loop {steps}")
+    _, replayed_ms = _timed(lambda: eng.generate(prompts, caps))
+    with eager_loop(eng):
+        _, eager_ms = _timed(lambda: eng.generate(prompts, caps))
+    st = eng.generate_chunked(eng.start_chunked(prompts, caps), eng.n_max)
+    out, lengths, done, t = eng.poll_chunked(st)
+    check(t == steps and np.array_equal(out, ref.tokens)
+          and np.array_equal(lengths, ref.lengths),
+          f"early EOS: chunked t {t} != the oracle's {steps}, or tokens "
+          f"differ")
+    log(f"early EOS: eos_id {eos} (row 0's token at step 3), caps {caps}: "
+        f"lengths {ref.lengths.tolist()}; generate_reference's loop ran "
+        f"{steps} steps; the device loop ran {iters} iterations, "
+        f"chunked t = {t}; generate {replayed_ms:.1f} ms replayed, "
+        f"{eager_ms:.1f} ms eager (n_max = {eng.n_max} steps)")
+    res = dict(eos_id=eos, steps=steps, lengths=ref.lengths.tolist(),
+               loop_iterations=iters, replayed_ms=replayed_ms,
+               eager_ms=eager_ms, chunked_t=t)
+    del st, eng
+    return res
+
+
 # The main path, three ways: (label, the method the env deploys, policy
 # spec, the engine's weight bits, counters that must launch in the run,
 # counters that must not).  Each run is counted on its own.
 MAIN_PATHS = [
     ("dftsp_w8a16", "W8A16", "dftsp", 8,
-     ("w8a16", "w8a16_tc", "w8a16_gemv", "flash_decode"),
+     ("w8a16", "w8a16_tc", "w8a16_gemv", "flash_decode", "decode_loop"),
      ("w8a8", "w8a8_tc", "w8a8_gemv", "w4a16", "w4a16_tc", "w4a16_gemv")),
     ("dftsp_auto_split", "W8A16", "dftsp:quant=auto,split=true", 8,
-     ("w8a8", "w8a8_tc", "w8a8_gemv", "flash_decode"), ()),
+     ("w8a8", "w8a8_tc", "w8a8_gemv", "flash_decode", "decode_loop"), ()),
     ("dftsp_w4a16", "W4A16-GPTQ", "dftsp", 4,
-     ("w4a16", "w4a16_tc", "w4a16_gemv", "flash_decode"),
+     ("w4a16", "w4a16_tc", "w4a16_gemv", "flash_decode", "decode_loop"),
      ("w8a16", "w8a16_tc", "w8a16_gemv", "w8a8", "w8a8_tc", "w8a8_gemv")),
 ]
 
@@ -1510,7 +1718,8 @@ def serve_paths(engines, rate: float, n_epochs: int):
 
 
 def continuous_phase(engine, spec: str = "dftsp",
-                     launched=("flash_decode_paged", "w8a16", "w8a16_gemv"),
+                     launched=("flash_decode_paged", "w8a16", "w8a16_gemv",
+                               "decode_loop"),
                      idle=("flash_decode",), rate: float = 10.0,
                      n_epochs: int = 3, k: int = 16, label="continuous",
                      policy=None):
@@ -1579,11 +1788,12 @@ def continuous_phase(engine, spec: str = "dftsp",
 
 
 def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
-                            step_timing: bool = True):
+                            step_timing: bool = True, loop_turns: int = 3):
     """Chunked decode over the arena, over the slab and ``generate`` give
     bitwise equal tokens at ``bits``; so do a paged and a slab cohort
     refilled at step 40.  Also times one paged decode step, eager and as a
-    CUDA-graph replay."""
+    CUDA-graph replay, and a full paged cohort with the eager loop against
+    the device loop (``loop_timing``, ``loop_turns`` turns)."""
     import numpy as np
     from repro_torch.serving.kv_arena import ZERO_PAGE, KVArena
     arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"])
@@ -1658,8 +1868,17 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
     log(f"paged decode step, {what} (B={len(prompts)}, pos={pos}): "
         f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
         f"{1.0 - dev_ms / step_ms:.3f})")
+    # a full paged cohort with the eager loop against the device loop, in
+    # turns; its "prefill" is start_chunked (prefill and page scatter)
+    full = [engine.n_max] * len(prompts)
+    _, pre_ms = _timed(lambda: engine.release_all(engine.start_chunked(
+        prompts, full, quant_bits=bits, arena=arena)))
+    loop = loop_timing(engine, prompts, bits, f"paged {what}",
+                       turns=loop_turns, arena=arena, pre_ms=pre_ms,
+                       dev_ms=dev_ms)
     return dict(out, paged_step_ms=step_ms, paged_step_device_ms=dev_ms,
-                paged_step_idle_share=1.0 - dev_ms / step_ms)
+                paged_step_idle_share=1.0 - dev_ms / step_ms,
+                paged_start_ms=pre_ms, loop=loop)
 
 
 def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
@@ -1723,12 +1942,16 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         # the same step with no host work between its kernels
         dev_ms = device_ms(lambda i: engine._decode(params, cache,
                                                            cur, 0))
-        _, gen_ms = _timed(lambda: engine.generate(
-            prompts, [n_max] * batch, quant_bits=bits))
+        # generate with the eager loop against the device loop, in turns
+        loop = loop_timing(engine, prompts, bits, label,
+                           turns=3 if label == "W8A16" else 1,
+                           pre_ms=pre_ms, dev_ms=dev_ms)
+        gen_ms = min(loop["replayed_ms"])
         timings[label] = dict(prefill_ms=pre_ms, generate_ms=gen_ms,
                               decode_ms_per_step=step_ms,
                               decode_device_ms_per_step=dev_ms,
-                              decode_idle_share=1.0 - dev_ms / step_ms)
+                              decode_idle_share=1.0 - dev_ms / step_ms,
+                              loop=loop)
         if label == "W8A8":
             timings[label]["in_prefill"] = w8a8_prefill_breakdown(
                 engine, params, tokens)
@@ -1737,8 +1960,12 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         log(f"slice: {label}: prefill (M={batch * s_max}) {pre_ms:.1f} ms; "
             f"decode step {step_ms:.2f} ms eager, {dev_ms:.2f} ms of device "
             f"work (idle share {1.0 - dev_ms / step_ms:.3f}); generate of "
-            f"{n_max} tokens x {batch} rows {gen_ms:.1f} ms")
+            f"{n_max} tokens x {batch} rows {gen_ms:.1f} ms replayed, "
+            f"{min(loop['eager_ms']):.1f} ms eager")
         del cache
+    # the step's device ops, eager and replayed, and an early-EOS cohort
+    trace = trace_steps(engine, prompts, 8)
+    early = early_eos_phase(engine, prompts, kw)
 
     # the tied unembedding: x @ dequant(embed).T on a kept bf16 table
     emb = engine.params_for(8)["embed"]
@@ -1754,7 +1981,8 @@ def slice_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         f"{unembed['matmul_ms']:.3f} ms; dequantizing it takes "
         f"{deq_ms:.1f} ms (not done per step)")
     return dict(runs=runs, timings=timings, unembed=unembed, paged=paged,
-                kept_tables=kept_tables(engine))
+                kept_tables=kept_tables(engine), trace=trace,
+                early_eos=early, captures=engine.captures)
 
 
 def _prompts(cfg, batch, s_max, n_max, seed=0):
@@ -1809,12 +2037,15 @@ class _OpCount:
         self._mode.__exit__(*exc)
 
 
-def decode_step_timing(engine, prompts, bits, label, unfused=False):
+def decode_step_timing(engine, prompts, bits, label, unfused=False,
+                       loop=False):
     """Prefill ms, then one decode step of the full batch: eager ms, device
     ms (its kernels replayed as one CUDA graph), the idle share, the
     hand-written kernel calls and the ATen ops it dispatches.  ``unfused``
     takes the step with the fused gate forced off (K1 projections + rope +
-    K4, the tier the model would take without K6) for comparison."""
+    K4, the tier the model would take without K6) for comparison.
+    ``loop`` adds ``generate`` with the eager loop against the device
+    loop (``loop_timing``)."""
     from repro_torch.kernels import ops
     params = engine.params_for(bits)
     host = engine._prepare(prompts, [engine.n_max] * len(prompts), bits)[1]
@@ -1856,6 +2087,9 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False):
                decode_device_ms_per_step=dev_ms,
                decode_idle_share=1.0 - dev_ms / step_ms,
                kernel_calls_per_step=calls, aten_ops_per_step=n_ops.n)
+    if loop:
+        out["loop"] = loop_timing(engine, prompts, bits, label, pre_ms=pre_ms,
+                                  dev_ms=dev_ms)
     if bits == (8, 8) and not unfused:
         out["in_prefill"] = w8a8_prefill_breakdown(engine, params, tokens)
         out["in_decode"] = w8a8_decode_breakdown(engine, params, cache, cur)
@@ -1927,6 +2161,8 @@ def continuous_measured_phase(engine, k: int = 16):
     check_prefill_on_tensor_cores(serving, "measured serving")
     check(serving["flash_decode"] == serving["flash_decode_fused"] == 0,
           f"serving over the arena launched a slab decode kernel: {serving}")
+    check(serving["decode_loop"] > 0,
+          f"measured serving ran no device loop: {serving}")
     # the methods served: each epoch's cohort method, and each request's
     # own (a split cohort serves some rows at its second method)
     served = {q for t in run["cohort_methods"] for q in t.values()} \
@@ -1978,7 +2214,8 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
     slab_decode = ("flash_decode", "flash_decode_paged")
     runs = {"bloom7b1_dftsp_w8a16": epoch_path(
         engine, "bloom7b1_dftsp_w8a16", "W8A16", "dftsp",
-        ("flash_decode_fused", "w8a16", "w8a16_tc", "w8a16_gemv"),
+        ("flash_decode_fused", "w8a16", "w8a16_tc", "w8a16_gemv",
+         "decode_loop"),
         slab_decode + ("flash_decode_fused_paged", "w8a8", "w8a8_tc",
                        "w8a8_gemv", "w4a16", "w4a16_tc", "w4a16_gemv"), rate,
         n_epochs)}
@@ -1989,21 +2226,23 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
         f"W8A8 ({batch} rows, {n_max} tokens)")
     runs["bloom7b1_continuous_w8a16"] = continuous_phase(
         engine, launched=("flash_decode_fused_paged", "w8a16", "w8a16_tc",
-                          "w8a16_gemv"),
+                          "w8a16_gemv", "decode_loop"),
         idle=slab_decode + ("flash_decode_fused",),
         label="bloom7b1_continuous_w8a16")
     runs["bloom7b1_continuous_auto_measured"] = \
         continuous_measured_phase(engine)
     paged = {str(bits): paged_equivalence_phase(
-        engine, prompts, caps, bits=bits, step_timing=bits == 8)
+        engine, prompts, caps, bits=bits, step_timing=bits == 8,
+        loop_turns=1)
         for bits in (8, (8, 8))}
     timings = {label: decode_step_timing(engine, prompts, bits, label,
-                                         unfused=unfused)
+                                         unfused=unfused,
+                                         loop=label in ("W8A16", "W8A8"))
                for label, bits, unfused in (
                    ("W8A16", 8, False), ("W8A16 unfused", 8, True),
                    ("W8A8", (8, 8), False), ("BF16", 0, False))}
     return dict(runs=runs, timings=timings, paged=paged,
-                kept_tables=kept_tables(engine))
+                kept_tables=kept_tables(engine), captures=engine.captures)
 
 
 def kept_tables(engine):

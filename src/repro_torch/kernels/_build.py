@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("quant_matmul", "flash_decode", "flash_decode_fused")
+SOURCES = ("quant_matmul", "flash_decode", "flash_decode_fused",
+           "decode_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +95,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         + (I,) * 6 + (F, F) + (I,) * 8 + (P,),
         "flash_decode_fused_paged": (P,) * 12 + (P, I, P, I) + (P,) * 6
         + (I,) * 7 + (L, L, L) + (F, F) + (I,) * 8 + (P,),
+        "decode_loop_build": (P, P, P, P, P, P, I, P, P),
+        "decode_loop_launch": (P, P),
+        "decode_loop_destroy": (P,),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -11,6 +11,7 @@ from typing import Dict, Union
 
 import torch
 
+from repro_torch.kernels import decode_loop as _dl
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.quant.ptq import QTensor, quantize_rowwise
@@ -24,15 +25,27 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+_COUNTERS = (_qm.LAUNCHES, _fd.LAUNCHES, _dl.LAUNCHES)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel."""
-    return {**_qm.LAUNCHES, **_fd.LAUNCHES}
+    return {k: v for d in _COUNTERS for k, v in d.items()}
 
 
 def reset_launch_counts() -> None:
-    for d in (_qm.LAUNCHES, _fd.LAUNCHES):
+    for d in _COUNTERS:
         for k in d:
             d[k] = 0
+
+
+def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to the launch counters: the launches of a
+    captured step, once for each iteration a device loop ran it (a
+    replay runs no wrapper)."""
+    for d in _COUNTERS:
+        for k in d:
+            d[k] += times * counts.get(k, 0)
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -67,13 +80,53 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _rope_rows(pos: int, dh: int, theta: float, device):
-    """cos/sin (1, dh/2) float32 rows for decode position ``pos`` (the
-    angle convention of ``models.common.apply_rope``), made once here so
-    that the slab and the paged fused kernels see the same rows."""
+class DecodePos:
+    """The position of a decode step, as one int32 0-d tensor on the step's
+    device, and what the decode-attention tiers derive from it (the cache
+    slot, the valid-slot counts, the evicted slot, the rope rows), each
+    made once a step and shared by every layer.  A host int goes through
+    the same tensor code, so the two forms give the same bits; a CUDA graph
+    captured on a device position replays at whatever position it holds."""
+
+    def __init__(self, pos, device):
+        if isinstance(pos, torch.Tensor):
+            self.pos = pos.reshape(())
+        else:
+            self.pos = torch.full((), int(pos), dtype=torch.int32,
+                                  device=device)
+        self._memo: Dict[tuple, object] = {}
+
+    def derive(self, key: tuple, fn):
+        """``fn(pos)``, made once for each ``key``."""
+        if key not in self._memo:
+            self._memo[key] = fn(self.pos)
+        return self._memo[key]
+
+    def per_row(self, key: tuple, B: int, fn) -> torch.Tensor:
+        """``fn(pos)`` as a contiguous (B,) int32 tensor, one value for
+        every row (the kernels' per-row pointer form)."""
+        return self.derive(key + (B,), lambda p: fn(p).to(torch.int32)
+                           .reshape(1).expand(B).contiguous())
+
+
+def decode_pos(pos, device) -> DecodePos:
+    """``pos`` (a host int, an int32 0-d tensor or a :class:`DecodePos`) as
+    a :class:`DecodePos`."""
+    return pos if isinstance(pos, DecodePos) else DecodePos(pos, device)
+
+
+def _rope_rows(pos, dh: int, theta: float, device):
+    """cos/sin (1, dh/2) float32 rows for decode position ``pos`` (an int
+    or a 0-d tensor; the angle convention of ``models.common.apply_rope``),
+    made once here so that the slab and the paged fused kernels see the
+    same rows.  A position below 2^24 is exact in float32, so
+    ``freqs * float(pos)`` and ``freqs * pos.float()`` round alike."""
     freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
                                           device=device) / dh))
-    ang = freqs * float(pos)
+    if isinstance(pos, torch.Tensor):
+        ang = freqs * pos.to(torch.float32)
+    else:
+        ang = freqs * float(pos)
     return torch.cos(ang).reshape(1, -1), torch.sin(ang).reshape(1, -1)
 
 
@@ -128,19 +181,23 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return _fd.flash_decode_paged_plain(q, k_pages, v_pages, table, n_valid)
 
 
-def _fused_operands(x, wq, wk, wv, wo, W: int, pos: int, dh: int,
+def _fused_operands(x, wq, wk, wv, wo, W: int, pos, dh: int,
                     rope_theta: float):
-    """The fused kernels' operands from QTensor projections and a host
-    position: the int8 weights and flat scales, n_valid = min(pos, W), the
-    slot the current token will overwrite (pos % W once pos >= W, else -1)
-    and the rope rows."""
+    """The fused kernels' operands from QTensor projections and a position
+    (an int, a 0-d tensor or a :class:`DecodePos`): the int8 weights and
+    flat scales, n_valid = min(pos, W) and the slot the current token will
+    overwrite (pos % W once pos >= W, else -1) as (B,) int32 tensors, and
+    the rope rows."""
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         if not isinstance(w, QTensor) or w.bits != 8:
             raise ValueError(f"{name}: the fused tier takes int8 QTensors")
-    pos = int(pos)
-    nv = min(pos, W)
-    ev = pos % W if pos >= W else -1
-    cos, sin = _rope_rows(pos, dh, rope_theta, x.device)
+    dp = decode_pos(pos, x.device)
+    B = x.shape[0]
+    nv = dp.per_row(("fused_nv", W), B, lambda p: torch.clamp(p, max=W))
+    ev = dp.per_row(("fused_ev", W), B,
+                    lambda p: torch.where(p >= W, p % W, -1))
+    cos, sin = dp.derive(("rope", dh, rope_theta),
+                         lambda p: _rope_rows(p, dh, rope_theta, x.device))
     ws = []
     for w in (wq, wk, wv, wo):
         ws += [w.q, w.scale.reshape(-1)]
@@ -149,13 +206,14 @@ def _fused_operands(x, wq, wk, wv, wo, W: int, pos: int, dh: int,
 
 def flash_decode_fused(x: torch.Tensor, wq, wk, wv, wo,
                        cache_k: torch.Tensor, cache_v: torch.Tensor,
-                       pos: int, rope_theta: float = 1e4,
+                       pos, rope_theta: float = 1e4,
                        use_rope: bool = True):
     """Fused quantized decode attention over a slot cache (K6).
 
     x (B, D) pre-norm hidden rows; wq/wk/wv/wo int8 QTensors (W8A8 when
     they carry ``act_bits=8``); caches (B, W, nkv, dh) PRE-write; pos the
-    current position (a host int).  Returns (o (B, D), k1, v1
+    current position (a host int, an int32 0-d tensor on x's device or a
+    :class:`DecodePos`).  Returns (o (B, D), k1, v1
     (B, nkv, dh)); the CALLER writes k1/v1 at slot pos % W."""
     W, dh = cache_k.shape[1], cache_k.shape[3]
     ws, nv, ev, cos, sin, a8 = _fused_operands(x, wq, wk, wv, wo, W, pos,
@@ -170,7 +228,7 @@ def flash_decode_fused(x: torch.Tensor, wq, wk, wv, wo,
 
 def flash_decode_fused_paged(x: torch.Tensor, wq, wk, wv, wo,
                              k_pages: torch.Tensor, v_pages: torch.Tensor,
-                             table: torch.Tensor, pos: int,
+                             table: torch.Tensor, pos,
                              rope_theta: float = 1e4,
                              use_rope: bool = True):
     """``flash_decode_fused`` read through a block table (K7): k/v pages

@@ -216,20 +216,38 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def cache_write(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                k1: torch.Tensor, v1: torch.Tensor, pos: int) -> None:
-    """Write one token's k/v (B,1,nkv,dh) at slot pos % W, in place."""
-    slot = pos % cache_k.shape[1]
-    cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
+                k1: torch.Tensor, v1: torch.Tensor, pos) -> None:
+    """Write one token's k/v (B,1,nkv,dh) at slot pos % W, in place
+    (``index_copy_`` at a device index: pos is an int, a 0-d tensor or a
+    ``DecodePos``)."""
+    W = cache_k.shape[1]
+    slot = kops.decode_pos(pos, k1.device).derive(
+        ("slot", W), lambda p: (p % W).reshape(1).long())
+    cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
+
+
+def _rope_positions(dp, B: int) -> torch.Tensor:
+    """The (B, 1) int32 rope positions of a decode step (a view)."""
+    return dp.derive(("rope_pos", B), lambda p: p.reshape(1, 1).expand(B, 1))
+
+
+def _valid_mask(n_valid: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, 1, 1, 1, W) mask of the slots below each row's n_valid, in the
+    layout ``gqa_attention`` broadcasts."""
+    slots = torch.arange(W, device=n_valid.device)
+    return (slots[None, :] < n_valid[:, None])[:, None, None, None, :]
 
 
 def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
                      use_rope: bool = True, use_kernel: bool = True
                      ) -> torch.Tensor:
-    """One-token decode step.  x: (B, 1, D); pos: the current position (a
-    host int).  Writes the token into the cache in place; returns the
-    attention output (B, 1, D).  With ``use_kernel``, int8 projections that
+    """One-token decode step.  x: (B, 1, D); pos: the current position, a
+    host int, an int32 0-d tensor on x's device or a ``kops.DecodePos``
+    (all three take the same tensor code, so they give the same bits).
+    Writes the token into the cache in place; returns the attention output
+    (B, 1, D).  With ``use_kernel``, int8 projections that
     ``kops.fusable_decode`` admits take the fused tier
     (``flash_decode_fused``), others ``flash_decode``.
     ``use_kernel=False`` takes the plain masked softmax, which serves CPU
@@ -239,29 +257,29 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                          "runs on the CPU only; CUDA tensors go through "
                          "the flash_decode kernel")
     B = x.shape[0]
+    dp = kops.decode_pos(pos, x.device)
     if use_kernel and kops.fusable_decode(p, cfg):
         # fused tier (K6): projections, rope, attention over the pre-write
         # cache plus the current token, and wo in one call; then the write
         o, k1, v1 = kops.flash_decode_fused(
             x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], cache_k, cache_v,
-            pos, rope_theta=cfg.rope_theta, use_rope=use_rope)
-        cache_write(cache_k, cache_v, k1[:, None], v1[:, None], pos)
+            dp, rope_theta=cfg.rope_theta, use_rope=use_rope)
+        cache_write(cache_k, cache_v, k1[:, None], v1[:, None], dp)
         return o[:, None]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k1, v1 = qkv_proj(p, cfg, x, positions, use_rope)
-    cache_write(cache_k, cache_v, k1, v1, pos)
+    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
+    cache_write(cache_k, cache_v, k1, v1, dp)
     W = cache_k.shape[1]
-    n_valid = min(pos + 1, W)
+    n_valid = dp.per_row(("n_valid", W), B,
+                         lambda p: torch.clamp(p + 1, max=W))
     if use_kernel:
         out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid)[:, None]
     else:
-        mask = (torch.arange(W, device=x.device) < n_valid)[None, None, None, None, :]
-        out = gqa_attention(q, cache_k, cache_v, mask)
+        out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W))
     return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
 def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                           cache: Dict[str, torch.Tensor], pos: int,
+                           cache: Dict[str, torch.Tensor], pos,
                            use_kernel: bool = True) -> torch.Tensor:
     """Dict-cache decode step ({"k", "v"} float cache; updated in place).
     The int8 KV cache (kv_bits=8) is not ported yet."""
@@ -273,25 +291,26 @@ def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                            pages: Dict[str, torch.Tensor],
-                           table: torch.Tensor, pos: int,
+                           table: torch.Tensor, pos,
                            use_kernel: bool = True) -> torch.Tensor:
     """One-token decode step over a PAGED cache.
 
     pages: one layer's view of the node-wide arena, {"k", "v"} of shape
     (P, block_tokens, nkv', dh'); table: (B, n_b) int32 on x's device,
-    mapping logical block j of row b to its physical page.  Page tails may
-    be wider than this model's (nkv, dh) (the node's pool provisions the
-    max over hosted cohorts), so the write targets and the read takes the
-    leading (nkv, dh) corner, a strided view read in place.  The token is
-    written in place at page ``table[b, pos // bt]``, offset ``pos % bt``;
-    dead rows' tables point at the trash page, several rows at once, and
-    which of their duplicate writes lands is unspecified on CUDA: no live
-    row reads that page.  Attention reads the row's logical blocks through
-    ``flash_decode_paged``, or, for int8 projections that
-    ``kops.fusable_decode`` admits, the fused ``flash_decode_fused_paged``
-    over the pre-write pages, which writes the token after;
-    ``use_kernel=False`` gathers them into the contiguous (B, n_b * bt,
-    nkv, dh) view and takes the plain masked softmax (CPU tensors
+    mapping logical block j of row b to its physical page; pos as for
+    ``decode_attention``.  Page tails may be wider than this model's (nkv,
+    dh) (the node's pool provisions the max over hosted cohorts), so the
+    write targets and the read takes the leading (nkv, dh) corner, a
+    strided view read in place.  The token is written in place
+    (``index_put_`` at device indices) at page ``table[b, pos // bt]``,
+    offset ``pos % bt``; dead rows' tables point at the trash page, several
+    rows at once, and which of their duplicate writes lands is unspecified
+    on CUDA: no live row reads that page.  Attention reads the row's
+    logical blocks through ``flash_decode_paged``, or, for int8 projections
+    that ``kops.fusable_decode`` admits, the fused
+    ``flash_decode_fused_paged`` over the pre-write pages, which writes the
+    token after; ``use_kernel=False`` gathers them into the contiguous (B,
+    n_b * bt, nkv, dh) view and takes the plain masked softmax (CPU tensors
     only)."""
     if cfg.kv_bits == 8:
         raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
@@ -305,20 +324,24 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     bt = pk.shape[1]
     n_b = table.shape[1]
     W = n_b * bt
-    page = table[:, pos // bt]                                   # (B,)
+    dp = kops.decode_pos(pos, x.device)
+    page = dp.derive(("page", bt), lambda p: torch.index_select(
+        table, 1, (p // bt).reshape(1).long())[:, 0].long())      # (B,)
+    off = dp.derive(("offset", bt, B),
+                    lambda p: (p % bt).reshape(1).expand(B).long())
     if use_kernel and kops.fusable_decode(p, cfg):
         # fused tier (K7) over the pre-write pages, then the write
         o, k1, v1 = kops.flash_decode_fused_paged(
             x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], pk[..., :nkv, :dh],
-            pv[..., :nkv, :dh], table, pos, rope_theta=cfg.rope_theta)
-        pk[page, pos % bt, :nkv, :dh] = k1.to(pk.dtype)
-        pv[page, pos % bt, :nkv, :dh] = v1.to(pv.dtype)
+            pv[..., :nkv, :dh], table, dp, rope_theta=cfg.rope_theta)
+        pk[..., :nkv, :dh].index_put_((page, off), k1.to(pk.dtype))
+        pv[..., :nkv, :dh].index_put_((page, off), v1.to(pv.dtype))
         return o[:, None]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k1, v1 = qkv_proj(p, cfg, x, positions)
-    pk[page, pos % bt, :nkv, :dh] = k1[:, 0].to(pk.dtype)
-    pv[page, pos % bt, :nkv, :dh] = v1[:, 0].to(pv.dtype)
-    n_valid = min(pos + 1, W)
+    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
+    pk[..., :nkv, :dh].index_put_((page, off), k1[:, 0].to(pk.dtype))
+    pv[..., :nkv, :dh].index_put_((page, off), v1[:, 0].to(pv.dtype))
+    n_valid = dp.per_row(("n_valid", W), B,
+                         lambda p: torch.clamp(p + 1, max=W))
     kc, vc = pk[..., :nkv, :dh], pv[..., :nkv, :dh]
     if use_kernel:
         out = kops.flash_decode_paged(q[:, 0], kc, vc, table, n_valid)[:, None]
@@ -326,18 +349,25 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
         idx = table.long()
         kd = kc[idx].reshape(B, W, nkv, dh)
         vd = vc[idx].reshape(B, W, nkv, dh)
-        mask = (torch.arange(W, device=x.device) < n_valid)[None, None, None, None, :]
-        out = gqa_attention(q, kd, vd, mask)
+        out = gqa_attention(q, kd, vd, _valid_mask(n_valid, W))
     return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
-def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, W: int
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, W: int,
+                          out: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                          = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Build the slot cache from prefill k/v (B, S, nkv, dh): position p
-    lands at slot p % W; only the last W positions survive."""
+    lands at slot p % W; only the last W positions survive.  ``out``: a
+    (k, v) cache of shape (B, W, nkv, dh) to fill in place (zeroed first),
+    for a decode loop whose cache keeps its address."""
     B, S, nkv, dh = k.shape
-    ck = torch.zeros((B, W, nkv, dh), dtype=k.dtype, device=k.device)
-    cv = torch.zeros((B, W, nkv, dh), dtype=v.dtype, device=v.device)
+    if out is None:
+        ck = torch.zeros((B, W, nkv, dh), dtype=k.dtype, device=k.device)
+        cv = torch.zeros((B, W, nkv, dh), dtype=v.dtype, device=v.device)
+    else:
+        ck, cv = out
+        ck.zero_()
+        cv.zero_()
     start = max(0, S - W)
     slots = torch.arange(start, S, device=k.device) % W
     ck[:, slots] = k[:, start:]

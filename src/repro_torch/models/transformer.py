@@ -15,6 +15,7 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.quant.ptq import QTensor
 
@@ -112,14 +113,19 @@ def loss_fn(cfg: ModelConfig, params: Params, batch):
     return loss, {"loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
 
 
-def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0):
+def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0,
+            out: Cache = None):
     """Run the prompt through the stack; return (last-token logits, cache).
-    ``cache_len`` sets decode cache capacity (0 => prompt length)."""
+    ``cache_len`` sets decode cache capacity (0 => prompt length).
+    ``out``: a cache of that capacity to fill in place and return (a
+    decode loop's, which keeps its address)."""
     W = cache_len or batch["tokens"].shape[1]
     cache: Cache = []
 
     def keep(k, v):
-        ck, cv = common.prefill_cache_from_kv(k, v, W)
+        layer = None if out is None else out[len(cache)]
+        ck, cv = common.prefill_cache_from_kv(
+            k, v, W, None if layer is None else (layer["k"], layer["v"]))
         cache.append({"k": ck, "v": cv})
 
     x = _layers(cfg, params, batch["tokens"], keep)
@@ -128,17 +134,21 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0):
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                tokens: torch.Tensor, pos: int, use_kernel: bool = True):
-    """One decode iteration.  tokens: (B, 1) int; pos: host int giving the
-    position of this token (the cache holds positions < pos).  Updates
+                tokens: torch.Tensor, pos, use_kernel: bool = True):
+    """One decode iteration.  tokens: (B, 1) int; pos: the position of
+    this token (the cache holds positions < pos), an int32 0-d tensor on
+    the tokens' device (what a captured step replays) or a host int, which
+    takes the same tensor code.  The slot, valid counts and rope rows
+    derived from it are made once and shared by the layers.  Updates
     ``cache`` in place and returns (logits, cache).  ``use_kernel`` routes
     attention through the decode kernel; off, it takes the plain masked
     softmax, on CPU tensors only."""
     x = _table(params)[tokens]
+    dp = kops.decode_pos(pos, x.device)
     for lp, layer_cache in zip(params["layers"], cache):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         x = x + common.decode_attention_cache(lp["attn"], cfg, h, layer_cache,
-                                              pos, use_kernel)
+                                              dp, use_kernel)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         x = x + common.ffn_apply(lp["ffn"], cfg, h)
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
@@ -147,19 +157,20 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
 
 def decode_step_paged(cfg: ModelConfig, params: Params,
                       pages: Dict[str, torch.Tensor], table: torch.Tensor,
-                      tokens: torch.Tensor, pos: int, use_kernel: bool = True):
+                      tokens: torch.Tensor, pos, use_kernel: bool = True):
     """One decode iteration over the PAGED cache.  ``pages``: arena leaves
     stacked over layers, {"k", "v"} of shape (L, P, block_tokens, nkv',
     dh'); layer l works on the views ``pages[name][l]``.  ``table``: (B,
     n_b) int32 block table, shared by every layer (one page id covers all
-    L layers of a row's block).  Updates ``pages`` in place and returns
-    (logits, pages)."""
+    L layers of a row's block).  ``pos`` as for ``decode_step``.  Updates
+    ``pages`` in place and returns (logits, pages)."""
     x = _table(params)[tokens]
+    dp = kops.decode_pos(pos, x.device)
     for l, lp in enumerate(params["layers"]):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         x = x + common.decode_attention_paged(
             lp["attn"], cfg, h, {name: leaf[l] for name, leaf in pages.items()},
-            table, pos, use_kernel)
+            table, dp, use_kernel)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         x = x + common.ffn_apply(lp["ffn"], cfg, h)
     x = common.apply_norm(cfg.norm, params["final_norm"], x)

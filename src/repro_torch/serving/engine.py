@@ -8,13 +8,18 @@ output caps all on the device.  Per ``generate`` call there is exactly ONE
 host->device copy (prompts and caps, in one tensor) and ONE device->host
 copy (tokens and lengths, in one tensor).
 
-Eager PyTorch has no device-side ``while_loop``, so the host runs the loop
-for ``min(n_max, max(caps))`` steps (a number it already knows) and masks
-every row on the device; it never reads a device value inside the loop.
-The JAX package's loop exits once no row can emit; the rows this loop
-keeps stepping after that never emit again, so the tokens are the same.
-``generate_reference`` is the host-driven loop with one device->host copy
-per token, kept as the oracle ``generate`` must equal bit for bit.
+The decode loop runs on the device.  One function, ``_step``, is a decode
+step: emission, EOS, caps, forced replay, the model, the argmax and the
+advance of the cohort's step counter, all in place on tensors whose
+addresses stay fixed for the life of the loop.  On CUDA it is captured
+once as a CUDA graph (per cohort and precision; ``generate`` keeps one
+loop per engine) and wrapped in a device-side WHILE node
+(``kernels.decode_loop.DeviceLoop``): one launch runs the loop to its
+exit, and the host issues no ATen op and reads no device value inside it.
+On the CPU the same function runs eagerly, in ``_advance_eager``, the
+engine's eager loop.  ``generate_reference`` is the host-driven loop with
+one device->host copy per token, kept as the oracle ``generate`` must
+equal bit for bit.
 
 The same loop exists in re-entrant form for continuous batching:
 ``start_chunked`` prefills a cohort into a ``DecodeState`` (or, with
@@ -22,22 +27,21 @@ The same loop exists in re-entrant form for continuous batching:
 ``KVArena``), ``generate_chunked(state, k)`` advances it by at most k
 tokens, ``poll_chunked`` reads its progress back, and ``refill_chunked``
 prefills new prompts into slots freed by finished rows of the live cohort.
-Host copies: one host->device copy per ``start_chunked`` /
-``refill_chunked`` (prompts, caps, refill mask, forced-replay buffers and
-page-scatter ids in one tensor), one device->host copy per
-``poll_chunked``, a block-table re-ship only at a boundary where table rows
-changed, and none inside a segment.
+Prefill, refill, eviction and a block-table re-ship write into the
+cohort's tensors in place.  Host copies: one host->device copy per
+``start_chunked`` / ``refill_chunked`` (prompts, caps, refill mask,
+forced-replay buffers and page-scatter ids in one tensor), one
+device->host copy per ``poll_chunked``, a block-table re-ship only at a
+boundary where table rows changed, and none inside a segment.
 
-The device-side early exit: the JAX package's segment is a device
-``while_loop`` that also stops as soon as no row is alive, so its step
-``t`` can stop short of ``t_end``.  Here a segment always runs
-``min(t + k, n_max) - t`` masked steps, a count the host knows, and the
-step ``t`` is a host int.  The two differ only after a segment in which
-every row finished, and such a cohort is never stepped again: the
-continuous executor drains and resets the pool when no resident row is
-left, and ``generate_via_chunks`` stops when ``exhausted``.  So every
-``t`` that feeds ``headroom`` or an admission equals the JAX package's
-(``tests/test_torch_continuous.py`` holds the runtime's counts to it).
+The early exit is the JAX package's: the step counter ``t_dev`` lives on
+the device and advances only while the loop is live (some row can emit,
+and ``t_dev < t_end``), and the device loop stops as soon as it is not.
+So the tokens, the lengths and the ``t`` that ``poll_chunked`` reports
+equal the JAX package's, also where every row stops before ``t_end``, and
+a stopped cohort costs no further step.  The CPU's eager loop runs a
+host-known number of steps; those past the exit are dead and change
+nothing.
 
 Weights can be served quantized: ``quant_bits`` picks the default
 precision and ``generate(..., quant_bits=...)`` serves one batch at the
@@ -51,6 +55,7 @@ the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -59,6 +64,7 @@ import torch
 
 from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_loop import DeviceLoop
 from repro_torch.models.api import Model, build_model
 from repro_torch.quant.ptq import QTensor, quantize_tree, with_act_bits
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
@@ -77,18 +83,26 @@ class DecodeState:
     """Re-entrant decode state of one batch cohort.
 
     Produced by ``start_chunked`` and advanced by ``generate_chunked``;
-    the tensors live on the engine's device, so re-entering costs no
-    transfer.  A state passed to ``generate_chunked``, ``refill_chunked``
-    or ``evict_slots`` is CONSUMED (its tensors may be updated in place):
-    always continue from the returned state.
+    the tensors live on the engine's device and keep their addresses for
+    the cohort's life (a captured step reads and writes them in place), so
+    re-entering costs no transfer.  A state passed to ``generate_chunked``,
+    ``refill_chunked`` or ``evict_slots`` is CONSUMED (its tensors are
+    updated in place): always continue from the returned state.
 
-    ``t`` is the cohort's decode step, a host int: the shared KV-cache
-    write position is ``s_max + t``, bounded by ``n_max``.  Rows track
-    their own emission through ``lengths``, so rows admitted mid-cohort
-    emit into their row of ``out`` from 0 whatever ``t`` is.  While
-    ``lengths[i] < n_forced[i]`` a row emits ``forced[i, lengths[i]]``
-    instead of its argmax: the preemption-resume replay that keeps an
-    already-delivered prefix exact (all zero outside resume).
+    On the device: the rows' emission state and ``t_dev``, the cohort's
+    decode step (the shared KV-cache write position is ``s_max + t_dev``,
+    bounded by ``n_max``), which advances only while some row can emit, as
+    the JAX package's ``t`` does; ``t_end`` bounds the running segment.
+    On the host: ``t``, an upper bound on ``t_dev`` (the last segment's
+    end, or the ``t_now`` of the last refill), which the lease top-ups
+    cover from, as the JAX package's ``t_host``; ``poll_chunked`` reads
+    ``t_dev`` itself.  Rows track their own emission
+    through ``lengths``, so rows admitted mid-cohort emit into their row of
+    ``out`` from 0 whatever ``t_dev`` is.  While ``lengths[i] <
+    n_forced[i]`` a row emits ``forced[i, lengths[i]]`` instead of its
+    argmax: the preemption-resume replay that keeps an already-delivered
+    prefix exact (all zero outside resume).  ``graphs`` holds the
+    cohort's device loop per precision (CUDA only).
     """
     cache: Any                  # per-layer KV slot caches, full batch capacity
     cur: torch.Tensor           # (B,) next token to emit per row
@@ -96,11 +110,14 @@ class DecodeState:
     lengths: torch.Tensor       # (B,) emitted count per row
     done: torch.Tensor          # (B,) bool, EOS seen
     caps: torch.Tensor          # (B,) per-row output cap (0 = empty slot)
-    t: int = 0                  # cohort decode step
+    t: int = 0                  # host upper bound on t_dev
     bits: Any = 0               # precision spec (int or (w, a) pair)
     caps_host: np.ndarray = None  # host mirror of caps
     forced: torch.Tensor = None   # (B, n_max) forced-replay tokens
     n_forced: torch.Tensor = None  # (B,) forced-prefix length per row
+    t_dev: torch.Tensor = None    # () int32 cohort decode step
+    t_end: torch.Tensor = None    # () int32 bound of the running segment
+    graphs: dict = None           # precision -> captured step (CUDA)
 
     @property
     def batch_capacity(self) -> int:
@@ -111,13 +128,14 @@ class DecodeState:
 class PagedDecodeState:
     """Arena-backed sibling of :class:`DecodeState`: the cohort's KV lives
     in its node-wide :class:`KVArena`, and the state holds the cohort's
-    :class:`BlockTable` and the same per-row emission fields.  Rows lease
-    pages at admission and return them through ``release_slots`` the
-    moment they complete.  Cap-aware incremental leasing: per row,
-    ``lease_end`` is one past the highest block leased and ``lease_last``
-    one past the last block its cap can ever need; blocks in
-    ``[lease_end, lease_last)`` are TRASH in the table until a
-    segment-boundary top-up (``_extend_leases``) leases them."""
+    :class:`BlockTable` (whose device copy keeps its address across
+    re-ships) and the same per-row emission fields.  Rows lease pages at
+    admission and return them through ``release_slots`` the moment they
+    complete.  Cap-aware incremental leasing: per row, ``lease_end`` is one
+    past the highest block leased and ``lease_last`` one past the last
+    block its cap can ever need; blocks in ``[lease_end, lease_last)`` are
+    TRASH in the table until a segment-boundary top-up
+    (``_extend_leases``) leases them."""
     arena: KVArena
     table: BlockTable
     cur: torch.Tensor
@@ -130,6 +148,9 @@ class PagedDecodeState:
     caps_host: np.ndarray = None
     forced: torch.Tensor = None
     n_forced: torch.Tensor = None
+    t_dev: torch.Tensor = None
+    t_end: torch.Tensor = None
+    graphs: dict = None
     lease_end: np.ndarray = None   # (B,) next block index to lease
     lease_last: np.ndarray = None  # (B,) one past last block of the cap
 
@@ -189,6 +210,9 @@ class ServingEngine:
         self.precisions_served: set = set()  # precisions generate() ran at
         self.cache_len = s_max + n_max
         self.lease_topups = 0                # pages leased by top-ups
+        self._gen: Optional[DecodeState] = None  # generate's decode loop
+        self._graph_pool = None              # one pool for all its graphs
+        self.captures: list = []             # one record per captured step
 
     # -- multi-precision weight cache ---------------------------------------
 
@@ -284,10 +308,11 @@ class ServingEngine:
         host = np.concatenate([self.pad_prompts(prompts), caps[:, None]], 1)
         return params, torch.from_numpy(host), caps, nb
 
-    def _prefill(self, params, tokens):
-        """Prompt pass; returns (first sampled token (B,), KV cache)."""
+    def _prefill(self, params, tokens, out=None):
+        """Prompt pass; returns (first sampled token (B,), KV cache).
+        ``out``: a KV cache to fill in place."""
         logits, cache = self.model.prefill(params, {"tokens": tokens},
-                                           self.cache_len)
+                                           self.cache_len, out=out)
         return torch.argmax(logits[..., :self.cfg.vocab], -1), cache
 
     def _decode(self, params, cache, cur, t):
@@ -295,6 +320,168 @@ class ServingEngine:
             params, cache, cur[:, None], self.s_max + t,
             use_kernel=self.use_kernel)
         return torch.argmax(logits[..., :self.cfg.vocab], -1), cache
+
+    # -- the decode loop -----------------------------------------------------
+
+    def _emission(self, cur, caps, forced=None, n_forced=None) -> dict:
+        """A loop's fresh emission tensors for first tokens ``cur`` and caps
+        ``caps`` (copied: the loop owns its tensors)."""
+        B, dev = self.batch_capacity, self.device
+        return dict(
+            cur=cur.clone(), caps=caps.to(torch.int32).clone(),
+            out=torch.zeros((B, self.n_max), dtype=cur.dtype, device=dev),
+            lengths=torch.zeros((B,), dtype=cur.dtype, device=dev),
+            done=torch.zeros((B,), dtype=torch.bool, device=dev),
+            forced=(torch.zeros((B, self.n_max), dtype=torch.int32,
+                                device=dev) if forced is None
+                    else forced.clone()),
+            n_forced=(torch.zeros((B,), dtype=torch.int32, device=dev)
+                      if n_forced is None else n_forced.clone()),
+            t_dev=torch.zeros((), dtype=torch.int32, device=dev),
+            t_end=torch.zeros((), dtype=torch.int32, device=dev),
+            graphs={})
+
+    def _step(self, state, model_step) -> None:
+        """One decode step of ``state``, in place on its tensors, with no
+        host transfer: the one step body of ``generate`` and
+        ``generate_chunked`` (slab and paged), run eagerly on the CPU and
+        captured once on CUDA.
+
+        The loop is live while some row can emit and ``t_dev < t_end``
+        (the JAX package's ``cond``).  A live step emits at each alive
+        row's own ``lengths[i]`` (its forced token while replaying), retires
+        rows on EOS and caps, feeds the emitted tokens through
+        ``model_step(tokens, pos)`` at position ``s_max + t_dev`` and
+        advances ``t_dev``.  A step that is not live leaves cur, out,
+        lengths, done and ``t_dev`` as they were; its model call writes the
+        cache at a slot that no live row reads before writing it again
+        (the position is held below ``s_max + n_max``)."""
+        cur, out, lengths, done = state.cur, state.out, state.lengths, \
+            state.done
+        alive = (~done) & (lengths < state.caps)
+        live = alive.any() & (state.t_dev < state.t_end)
+        alive &= live
+        idx = torch.clamp(lengths, max=self.n_max - 1)[:, None]
+        fed = torch.where(lengths < state.n_forced,
+                          torch.gather(state.forced, 1, idx)[:, 0]
+                          .to(cur.dtype), cur)
+        out.scatter_(1, idx, torch.where(
+            alive, fed, torch.gather(out, 1, idx)[:, 0])[:, None])
+        lengths += alive
+        done |= (fed == self.eos_id) & alive
+        pos = self.s_max + torch.clamp(state.t_dev, max=self.n_max - 1)
+        torch.where(live, model_step(fed[:, None], pos), cur, out=cur)
+        state.t_dev += live
+
+    def _model_step(self, state):
+        """``(tokens, pos) -> next tokens`` of ``state`` at its precision:
+        ``decode_step`` on its slab cache, or ``decode_step_paged`` on its
+        arena's buffers through its block table's device copy."""
+        params = self.params_for(state.bits)
+        kw = dict(use_kernel=self.use_kernel)
+        if isinstance(state, PagedDecodeState):
+            pages, table = state.arena.buffers(), state.table.device
+
+            def run(tokens, pos):
+                return self.model.decode_step_paged(params, pages, table,
+                                                    tokens, pos, **kw)[0]
+        else:
+            def run(tokens, pos):
+                return self.model.decode_step(params, state.cache, tokens,
+                                              pos, **kw)[0]
+
+        def step(tokens, pos):
+            return torch.argmax(run(tokens, pos)[..., :self.cfg.vocab], -1)
+        return step
+
+    def _advance_eager(self, state, n_steps: int) -> None:
+        """The eager loop: ``n_steps`` steps of ``state``, one ATen op
+        after another (the CPU's loop)."""
+        step = self._model_step(state)
+        for _ in range(n_steps):
+            self._step(state, step)
+
+    def _advance(self, state, n_steps: int) -> None:
+        """Run ``state``'s loop: on CUDA, one launch of its device loop at
+        its precision (captured at the first call of each precision),
+        which stops on the device once the loop is not live; on the CPU,
+        the eager loop, ``n_steps`` steps (at least every step that can be
+        live; the others are dead and change nothing)."""
+        if n_steps <= 0:
+            return
+        if self.device.type != "cuda":
+            self._advance_eager(state, n_steps)
+            return
+        loop = state.graphs.get(state.bits)
+        if loop is None:
+            loop = state.graphs[state.bits] = self._capture(state)
+        loop.launch()
+
+    def _capture(self, state) -> DeviceLoop:
+        """Capture one step of ``state`` at its precision as a CUDA graph
+        in the engine's graph pool and wrap it in a device loop.  The step
+        is first run once on a side stream with the loop dead (``t_end =
+        t_dev``: it emits nothing and moves no counter), so that every
+        kernel's library is loaded before the capture; the capture itself
+        launches nothing, so the launches the wrappers count while it runs
+        are taken back and kept as the loop's own.  A failed capture
+        raises: there is no eager fallback on CUDA."""
+        step = self._model_step(state)
+        bound = state.t_end.clone()
+        state.t_end.copy_(state.t_dev)
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self._step(state, step)
+        here.wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = kops.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            self._step(state, step)
+        launches = {k: v - before[k] for k, v in kops.launch_counts().items()
+                    if v != before[k]}
+        kops.add_launch_counts(launches, -1)
+        loop = DeviceLoop(graph, state.t_dev, state.t_end, state.lengths,
+                          state.caps, state.done, launches)
+        loop.capture_ms = (time.perf_counter() - t0) * 1e3
+        state.t_end.copy_(bound)
+        self.captures.append(dict(bits=state.bits, ms=loop.capture_ms,
+                                  paged=isinstance(state, PagedDecodeState)))
+        return loop
+
+    def _read_back(self, state, cols) -> np.ndarray:
+        """The one device->host copy of a loop's results: the (B, c)
+        integer blocks ``cols``, side by side, and the iteration count of
+        each of the state's device loops, whose launches are then counted
+        (``DeviceLoop.count``).  Returns the blocks as one int32 array."""
+        B = state.lengths.shape[0]
+        loops = list(state.graphs.values())
+        blocks = [c.to(torch.int64) for c in cols] + [
+            loop.iters.reshape(1, 1).expand(B, 1) for loop in loops]
+        res = torch.cat(blocks, 1).cpu().numpy()      # the one D2H copy
+        n = res.shape[1] - len(loops)
+        for i, loop in enumerate(loops):
+            loop.count(res[0, n + i])
+        return res[:, :n].astype(np.int32)
+
+    def _generate_state(self, bits, cur, caps) -> DecodeState:
+        """``generate``'s decode loop, owned by the engine and reused by
+        every call (its captured steps with it), reset in place for a batch
+        with first tokens ``cur`` and caps ``caps``; its cache was filled
+        in place by the prefill."""
+        st = self._gen
+        st.bits = bits
+        st.cur.copy_(cur)
+        st.caps.copy_(caps)
+        for t in (st.out, st.lengths, st.done, st.forced, st.n_forced,
+                  st.t_dev):
+            t.zero_()
+        st.t_end.fill_(self.n_max)
+        return st
 
     @torch.no_grad()
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -305,23 +492,22 @@ class ServingEngine:
 
         ``n_tokens`` caps each request's output; ``quant_bits`` serves this
         batch at an explicit precision (``None``: the engine default).
-        One host->device and one device->host copy per call."""
+        One host->device and one device->host copy per call; on CUDA the
+        decode steps run as the engine's device loop."""
         params, host, caps, nb = self._prepare(prompts, n_tokens, quant_bits)
-        B = self.batch_capacity
+        bits = self.default_bits if quant_bits is None \
+            else self._canon_bits(quant_bits)
         dev = host.to(self.device)                    # the one H2D copy
         tokens, caps_d = dev[:, :self.s_max], dev[:, self.s_max]
-        cur, cache = self._prefill(params, tokens)
-        out = torch.zeros((B, self.n_max), dtype=cur.dtype, device=self.device)
-        lengths = torch.zeros((B,), dtype=cur.dtype, device=self.device)
-        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
-        for t in range(min(self.n_max, int(caps.max(initial=0)))):
-            alive = (~done) & (caps_d > t)
-            out[:, t] = torch.where(alive, cur, out[:, t])
-            lengths += alive
-            done |= (cur == self.eos_id) & alive
-            cur, cache = self._decode(params, cache, cur, t)
-        res = torch.cat([out, lengths[:, None]], 1).cpu().numpy()  # one D2H
-        res = res.astype(np.int32)
+        if self._gen is None:
+            cur, cache = self._prefill(params, tokens)
+            self._gen = DecodeState(cache=cache, caps_host=caps,
+                                    **self._emission(cur, caps_d))
+        else:
+            cur, _ = self._prefill(params, tokens, out=self._gen.cache)
+        state = self._generate_state(bits, cur, caps_d)
+        self._advance(state, min(self.n_max, int(caps.max(initial=0))))
+        res = self._read_back(state, [state.out, state.lengths[:, None]])
         return GenerationResult(tokens=res[:nb, :-1], lengths=res[:nb, -1],
                                 batch=nb)
 
@@ -410,9 +596,10 @@ class ServingEngine:
         steps launches, every row's lease must cover the blocks the segment
         can write (a block is read once the cursor passes it, so it is
         leased before the cursor enters it).  Host-side table remap; the
-        table re-ships once, lazily, and never inside a segment.  The
-        cohort step ``t`` is host-known here, so the cover is exact (the
-        JAX package bounds it from a host-side estimate)."""
+        table re-ships once, lazily, in place, and never inside a segment.
+        The cover starts from ``state.t``, the host's upper bound on the
+        device step (a segment may exit early), as the JAX package's
+        ``t_host``: it can only overshoot, within ``lease_last``."""
         arena = state.arena
         bt = arena.block_tokens
         nb = self.cache_len // bt
@@ -524,68 +711,34 @@ class ServingEngine:
         dev = self._ship(*cols)                       # the one H2D copy
         tokens, caps_d = dev[0][:, :self.s_max], dev[0][:, self.s_max]
         cur, cache = self._prefill(params, tokens)
-        emit = dict(cur=cur,
-                    out=torch.zeros((B, self.n_max), dtype=cur.dtype,
-                                    device=self.device),
-                    lengths=torch.zeros((B,), dtype=cur.dtype,
-                                        device=self.device),
-                    done=torch.zeros((B,), dtype=torch.bool,
-                                     device=self.device),
-                    caps=caps_d, t=0, bits=bits, caps_host=caps,
-                    forced=dev[1], n_forced=dev[2][:, 0])
+        emit = dict(bits=bits, caps_host=caps,
+                    **self._emission(cur, caps_d, dev[1], dev[2][:, 0]))
         if arena is None:
             return DecodeState(cache=cache, **emit)
         self._page_scatter(arena.buffers(), cache, dev[3].reshape(-1))
         return PagedDecodeState(arena=arena, table=table, lease_end=lease_end,
                                 lease_last=lease_last, **emit)
 
-    def _segment(self, step, state, t_end: int):
-        """``t_end - state.t`` masked decode steps (no host transfer);
-        ``step(tokens, pos)`` runs the model.  Per step: a row emits at its
-        own ``lengths[i]`` (its forced token while replaying), EOS and caps
-        retire it, and every row steps the model."""
-        cur, out, lengths, done = state.cur, state.out, state.lengths, \
-            state.done
-        caps, forced, n_forced = state.caps, state.forced, state.n_forced
-        for t in range(state.t, t_end):
-            alive = (~done) & (lengths < caps)
-            idx = torch.clamp(lengths, max=self.n_max - 1)[:, None]
-            cur = torch.where(lengths < n_forced,
-                              torch.gather(forced, 1, idx)[:, 0].to(cur.dtype),
-                              cur)
-            out.scatter_(1, idx, torch.where(
-                alive, cur, torch.gather(out, 1, idx)[:, 0])[:, None])
-            lengths = lengths + alive
-            done = done | ((cur == self.eos_id) & alive)
-            cur = step(cur[:, None], self.s_max + t)
-        return dataclasses.replace(state, cur=cur, out=out, lengths=lengths,
-                                   done=done, t=t_end)
-
     @torch.no_grad()
     def generate_chunked(self, state, k: int):
-        """Advance a cohort by ``min(t + k, n_max) - t`` decode steps (no
-        host transfer inside) and return the re-entrant state.  Driven to
-        completion this is bit-identical to ``generate`` for any k.  A
+        """Advance a cohort by at most ``k`` decode steps, to at most
+        ``n_max`` (no host transfer inside), and return the re-entrant
+        state.  The bound is ``t_end = min(t_dev + k, n_max)`` on the
+        device, as the JAX package's; on CUDA the device loop stops there
+        or where no row can emit, and the CPU's eager loop runs ``min(k,
+        n_max)`` steps, which cover every step that can be live (the rest
+        are dead and change nothing).  Driven to completion this is
+        bit-identical to ``generate`` for any k.  A
         :class:`PagedDecodeState` first tops its leases up to cover the
         segment (one table re-ship if rows changed), then steps through
         ``decode_step_paged`` on the arena's buffers."""
-        params = self.params_for(state.bits)
-        t_end = min(state.t + int(k), self.n_max)
-        kw = dict(use_kernel=self.use_kernel)
         if isinstance(state, PagedDecodeState):
             self._extend_leases(state, k)
-            pages, table = state.arena.buffers(), state.table.device
-
-            def step(tokens, pos):
-                logits, _ = self.model.decode_step_paged(
-                    params, pages, table, tokens, pos, **kw)
-                return torch.argmax(logits[..., :self.cfg.vocab], -1)
-        else:
-            def step(tokens, pos):
-                logits, _ = self.model.decode_step(params, state.cache,
-                                                   tokens, pos, **kw)
-                return torch.argmax(logits[..., :self.cfg.vocab], -1)
-        return self._segment(step, state, t_end)
+            state.table.ship()        # rows that changed, before the launch
+        torch.clamp(state.t_dev + int(k), max=self.n_max, out=state.t_end)
+        self._advance(state, min(int(k), self.n_max))
+        return dataclasses.replace(state,
+                                   t=min(state.t + int(k), self.n_max))
 
     def release_slots(self, state: PagedDecodeState,
                       slots: Sequence[int]) -> PagedDecodeState:
@@ -607,16 +760,18 @@ class ServingEngine:
 
     def poll_chunked(self, state, with_tokens: bool = True):
         """Read a cohort's progress back to the host: one device->host copy,
-        returning ``(out, lengths, done, t)`` as numpy + int.
-        ``with_tokens=False`` skips the (B, n_max) token buffer and returns
-        None for ``out``."""
-        cols = [state.lengths[:, None], state.done[:, None].to(
-            state.lengths.dtype)]
+        returning ``(out, lengths, done, t)`` as numpy + int, where ``t`` is
+        the cohort's device step ``t_dev`` (the JAX package's ``t``: it
+        stops where every row stopped).  ``with_tokens=False`` skips the
+        (B, n_max) token buffer and returns None for ``out``."""
+        B = state.lengths.shape[0]
+        cols = [state.lengths[:, None], state.done[:, None],
+                state.t_dev.reshape(1, 1).expand(B, 1)]
         if with_tokens:
             cols.insert(0, state.out)
-        res = torch.cat(cols, 1).cpu().numpy().astype(np.int32)  # one D2H
-        out = res[:, :-2] if with_tokens else None
-        return out, res[:, -2], res[:, -1].astype(bool), int(state.t)
+        res = self._read_back(state, cols)            # one D2H copy
+        out = res[:, :-3] if with_tokens else None
+        return out, res[:, -3], res[:, -2].astype(bool), int(res[0, -1])
 
     def exhausted(self, lengths, done, caps_host, t) -> bool:
         """True when no row of a polled cohort can emit again."""
@@ -640,13 +795,12 @@ class ServingEngine:
         mask = np.zeros((self.batch_capacity,), bool)
         mask[slots] = True
         mask_d = torch.from_numpy(mask).to(self.device)
-        done = state.done | mask_d
-        caps = torch.where(mask_d, torch.zeros_like(state.caps), state.caps)
+        state.done |= mask_d
+        state.caps.masked_fill_(mask_d, 0)
         caps_host = np.where(mask, 0, state.caps_host)
         if isinstance(state, PagedDecodeState):
             self.release_slots(state, slots)
-        return dataclasses.replace(state, done=done, caps=caps,
-                                   caps_host=caps_host)
+        return dataclasses.replace(state, caps_host=caps_host)
 
     @torch.no_grad()
     def refill_chunked(self, state, slots: Sequence[int],
@@ -704,19 +858,17 @@ class ServingEngine:
         dev = self._ship(*cols)                       # the one H2D copy
         caps_d, m = dev[1][:, 0], dev[2][:, 0].bool()
         new_cur, new_cache = self._prefill(params, dev[0])
-        # forced-replay splice (preemption resume): refilled rows take
+        # splice in place: refilled rows take their prefill, their caps and
         # their resume prefix (or none); live rows keep theirs
-        emit = dict(
-            cur=torch.where(m, new_cur, state.cur),
-            out=torch.where(m[:, None], torch.zeros_like(state.out),
-                            state.out),
-            lengths=torch.where(m, torch.zeros_like(state.lengths),
-                                state.lengths),
-            done=state.done & ~m,
-            caps=torch.where(m, caps_d, state.caps),
-            caps_host=np.where(refill, new_caps, state.caps_host),
-            forced=torch.where(m[:, None], dev[3], state.forced),
-            n_forced=torch.where(m, dev[4][:, 0], state.n_forced))
+        torch.where(m, new_cur, state.cur, out=state.cur)
+        state.out.masked_fill_(m[:, None], 0)
+        state.lengths.masked_fill_(m, 0)
+        state.done &= ~m
+        torch.where(m, caps_d, state.caps, out=state.caps)
+        torch.where(m[:, None], dev[3], state.forced, out=state.forced)
+        torch.where(m, dev[4][:, 0], state.n_forced, out=state.n_forced)
+        emit = dict(caps_host=np.where(refill, new_caps, state.caps_host),
+                    t=int(t_now))
         if paged:
             self._page_scatter(arena.buffers(), new_cache,
                                dev[5].reshape(-1))

@@ -27,9 +27,11 @@ Two pages are RESERVED and never allocated:
 Differences from the JAX package: buffers are torch tensors on the
 engines' device, zero-initialized and updated in place by the engine;
 ``BlockTable.device`` is an int32 tensor on the table's device, shipped
-lazily and again only after a row changed; ``for_engines`` takes the leaf
-shapes from the port's own ``init_cache`` on the meta device (its cache
-is a list of per-layer dicts, so the layer count becomes axis 0).
+lazily and again, in place, only after a row changed (it keeps its
+address, so a captured decode step reads the latest table);
+``for_engines`` takes the leaf shapes from the port's own ``init_cache``
+on the meta device (its cache is a list of per-layer dicts, so the layer
+count becomes axis 0).
 """
 from __future__ import annotations
 
@@ -61,8 +63,9 @@ class BlockTable:
     logical blocks).  The host array is authoritative; ``device`` is the
     int32 mirror the decode segment reads, on ``device`` (re-shipped only
     when rows changed -- admission/release/top-up boundaries, never inside
-    a segment).  ``n_pages`` (when given) bounds every page id written
-    through ``set_row``/``extend_row``."""
+    a segment -- by one host->device copy into the same tensor).
+    ``n_pages`` (when given) bounds every page id written through
+    ``set_row``/``extend_row``."""
 
     def __init__(self, batch: int, n_blocks: int,
                  n_pages: Optional[int] = None, device="cpu"):
@@ -70,11 +73,23 @@ class BlockTable:
         self.n_pages = n_pages
         self.on = torch.device(device)
         self._device: Optional[torch.Tensor] = None
+        self._stale = True
 
     @property
     def device(self) -> torch.Tensor:
-        if self._device is None:
-            self._device = torch.from_numpy(self.host.copy()).to(self.on)
+        return self.ship()
+
+    def ship(self) -> torch.Tensor:
+        """The device mirror, re-shipped first if rows changed since the
+        last ship (one host->device copy, into the same tensor after the
+        first)."""
+        if self._stale:
+            fresh = torch.from_numpy(self.host.copy()).to(self.on)
+            if self._device is None:
+                self._device = fresh
+            else:
+                self._device.copy_(fresh)
+            self._stale = False
         return self._device
 
     def _check(self, pages: np.ndarray) -> None:
@@ -89,7 +104,7 @@ class BlockTable:
         pages = np.asarray(pages, np.int32)
         self._check(pages)
         self.host[slot] = pages
-        self._device = None
+        self._stale = True
 
     def extend_row(self, slot: int, start: int,
                    pages: Sequence[int]) -> None:
@@ -100,13 +115,13 @@ class BlockTable:
         pages = np.asarray(pages, np.int32)
         self._check(pages)
         self.host[slot, start:start + len(pages)] = pages
-        self._device = None
+        self._stale = True
 
     def clear_row(self, slot: int) -> None:
         """Remap a row entirely to the trash page (dead rows keep
         stepping; their writes become don't-care writes)."""
         self.host[slot] = TRASH_PAGE
-        self._device = None
+        self._stale = True
 
     def row_leases(self, slot: int) -> List[int]:
         """Real (allocated) pages currently mapped by a row."""

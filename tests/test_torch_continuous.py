@@ -17,11 +17,11 @@ requests' tokens must equal the JAX package's.  The JAX side runs its
 ``use_kernel=False`` gather path (its Pallas kernels do not run on this
 CPU).
 
-The port runs every segment for its full ``min(t + k, n_max) - t`` steps
-where the JAX package's device loop stops once no row is alive; the
-runtime counts below (mid-epoch admissions, top-ups, the block series)
-depend on every cohort step ``t`` the executor reads, so their equality
-also shows that this difference is never observed.
+The runtime counts below (mid-epoch admissions, top-ups, the block
+series) depend on every cohort step ``t`` the executor reads, which the
+port's loop, like the JAX package's, stops where no row can emit
+(``tests/test_torch_decode_graph.py`` holds ``t`` itself to the JAX
+package's).
 """
 from __future__ import annotations
 

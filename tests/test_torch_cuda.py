@@ -14,7 +14,11 @@ error (atol 1e-4).  W8A8 sums integers exactly and is compared bitwise.
 The fused tier (K6, K7) is held the same way for k1 and v1; its output o
 is a sum of per-head partials rounded head by head, and with a8 of an
 int8 re-quantization of float32 attention values, which ``_fused_tols``
-bounds; K7 must equal K6 bitwise on the same values.
+bounds; K7 must equal K6 bitwise on the same values.  The decode loop on
+the device (a captured step in the WHILE node of ``csrc/decode_loop.cu``)
+is held bitwise to ``generate_reference`` and to itself, and a step at a
+device position bitwise to the step a host int drove (the kernels with
+scalar n_valid / evict), on every tier.
 """
 from __future__ import annotations
 
@@ -869,6 +873,286 @@ def test_fused_engine_on_the_card(cuda):
         assert counts["flash_decode_fused"] > 0
         assert counts["flash_decode_fused_paged"] > 0
         assert counts["flash_decode"] == counts["flash_decode_paged"] == 0
+
+
+# -- the decode position on the device: bitwise the host-int step ---------
+# Shared with tests/test_torch_decode_graph.py, which runs the same cases
+# on the CPU (the kernels' plain versions).
+
+POS_KW = dict(batch_capacity=4, s_max=24, n_max=8)
+# 0, s_max, W - 1, W and W + 7 (W = s_max + n_max: the fused tier's
+# eviction slot past the end)
+POSITIONS = [0, 24, 31, 32, 39]
+# (arch, precision): BLOOM-3B's unfused tier, K1 + K4, K2 + K4 and K3 + K4
+# (K5 paged); BLOOM-7B1 at d_head 128, the fused tier K6 (K7 paged)
+TIERS = [("bloom-3b", 8), ("bloom-3b", (8, 8)), ("bloom-3b", 4),
+         ("bloom-7b1", 8), ("bloom-7b1", (8, 8))]
+
+
+def _pos_engine(arch, dtype, device):
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    dims = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                vocab=256)
+    if arch == "bloom-7b1":
+        dims.update(d_model=256, d_ff=256)
+    eng = ServingEngine(get_arch(arch).scaled(**dims, dtype=dtype),
+                        quant_bits=8, seed=3, device=device, **POS_KW)
+    assert eng.decode_tier() == ("fused" if arch == "bloom-7b1" else "flash")
+    return eng
+
+
+def host_int_attention(p, cfg, x, ck, cv, pos: int):
+    """The decode attention a host-int position drove before the position
+    moved to the device: Python-int cache slot, valid counts, evicted slot
+    and rope angles (``freqs * float(pos)``), the kernels taking them as
+    scalars on CUDA, or their plain versions on the CPU."""
+    B, W = x.shape[0], ck.shape[1]
+    cuda = x.is_cuda
+    if ops.fusable_decode(p, cfg):
+        ws = []
+        for name in ("wq", "wk", "wv", "wo"):
+            ws += [p[name].q, p[name].scale.reshape(-1)]
+        cos, sin = ops._rope_rows(pos, cfg.d_head, cfg.rope_theta, x.device)
+        fused = tfd.flash_decode_fused_cuda if cuda \
+            else tfd.flash_decode_fused_plain
+        o, k1, v1 = fused(x[:, 0].contiguous(), *ws, ck, cv, min(pos, W),
+                          pos % W if pos >= W else -1, cos, sin, True,
+                          p["wq"].act_bits == 8)
+        ck[:, pos % W] = k1.to(ck.dtype)
+        cv[:, pos % W] = v1.to(cv.dtype)
+        return o[:, None]
+    from repro_torch.models import common
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k1, v1 = common.qkv_proj(p, cfg, x, positions)
+    ck[:, pos % W] = k1[:, 0].to(ck.dtype)
+    cv[:, pos % W] = v1[:, 0].to(cv.dtype)
+    attend = tfd.flash_decode_cuda if cuda else tfd.flash_decode_plain
+    out = attend(q[:, 0].contiguous(), ck, cv, min(pos + 1, W))[:, None]
+    return common.mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+
+
+def host_int_step(cfg, params, cache, tokens, pos: int):
+    """The host-int decode step (its layers around ``host_int_attention``)
+    over a slab cache, updated in place; returns the logits."""
+    from repro_torch.models import common, transformer
+    x = transformer._table(params)[tokens]
+    for lp, layer in zip(params["layers"], cache):
+        h = common.apply_norm(cfg.norm, lp["norm1"], x)
+        x = x + host_int_attention(lp["attn"], cfg, h, layer["k"],
+                                   layer["v"], pos)
+        h = common.apply_norm(cfg.norm, lp["norm2"], x)
+        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+    x = common.apply_norm(cfg.norm, params["final_norm"], x)
+    return transformer._unembed(cfg, params, x)[:, 0]
+
+
+def _pos_inputs(eng, seed):
+    """A random slab cache (B, W, nkv, dh) per layer and a token per row."""
+    from repro_torch.models import common
+    rng = np.random.default_rng(seed)
+    shape = (4, eng.cache_len, eng.cfg.n_kv_heads, eng.cfg.d_head)
+    cache = [{n: torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32))
+              .to(common.torch_dtype(eng.cfg)).to(eng.device)
+              for n in ("k", "v")} for _ in range(eng.cfg.n_layers)]
+    tokens = torch.from_numpy(rng.integers(1, 256, (4, 1))).to(eng.device)
+    return cache, tokens
+
+
+def check_device_position_step(arch, bits, dtype, pos, device):
+    """``decode_step`` at an int32 position tensor on the device against
+    the host-int step: logits and cache writes bitwise equal."""
+    import copy
+    eng = _pos_engine(arch, dtype, device)
+    params = eng.params_for(bits)
+    cache, tokens = _pos_inputs(eng, seed=0)
+    want_cache = copy.deepcopy(cache)
+    want = host_int_step(eng.cfg, params, want_cache, tokens, pos)
+    got, _ = eng.model.decode_step(
+        params, cache, tokens,
+        torch.tensor(pos, dtype=torch.int32).to(eng.device))
+    assert torch.equal(got, want)
+    for a, b in zip(cache, want_cache):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+def check_paged_device_position_step(arch, bits, dtype, pos, device):
+    """``decode_step_paged`` at a device position, each row on pages of
+    its own in a shuffled order (K5, or K7 on the fused tier), against the
+    host-int step on the same values as a slab: bitwise (K5 == K4 and
+    K7 == K6 on the gathered slab)."""
+    eng = _pos_engine(arch, dtype, device)
+    params = eng.params_for(bits)
+    cache, tokens = _pos_inputs(eng, seed=1)
+    bt = 8
+    n_b = eng.cache_len // bt
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy((rng.permutation(4 * n_b) + 2).reshape(
+        4, n_b).astype(np.int32)).to(eng.device)
+    pages = {}
+    for name in ("k", "v"):
+        leaf = torch.zeros((eng.cfg.n_layers, 4 * n_b + 2, bt,
+                            eng.cfg.n_kv_heads, eng.cfg.d_head),
+                           dtype=cache[0][name].dtype, device=eng.device)
+        for l, layer in enumerate(cache):
+            leaf[l][table.long().reshape(-1)] = layer[name].reshape(
+                4 * n_b, bt, *layer[name].shape[2:])
+        pages[name] = leaf
+    want = host_int_step(eng.cfg, params, cache, tokens, pos)
+    got, _ = eng.model.decode_step_paged(
+        params, pages, table, tokens,
+        torch.tensor(pos, dtype=torch.int32).to(eng.device))
+    assert torch.equal(got, want)
+    for l, layer in enumerate(cache):
+        for name in ("k", "v"):
+            assert torch.equal(pages[name][l][table.long()].reshape(
+                layer[name].shape), layer[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", POSITIONS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,bits", TIERS)
+def test_device_position_step_is_bitwise_on_the_card(cuda, arch, bits,
+                                                     dtype, pos):
+    check_device_position_step(arch, bits, dtype, pos, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", POSITIONS[:3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,bits", TIERS)
+def test_paged_device_position_step_is_bitwise_on_the_card(cuda, arch,
+                                                           bits, dtype, pos):
+    check_paged_device_position_step(arch, bits, dtype, pos, "cuda")
+
+
+# -- the decode loop on the device: a captured step in a WHILE node -------
+
+
+def _loop_engine(eos_id=0, n_max=128):
+    """Reduced bfloat16 BLOOM-3B (d_head 32: the unfused tier, the bf16
+    GEMVs at decode) with a long loop."""
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_arch("bloom-3b").scaled(n_layers=2, d_model=128, n_heads=4,
+                                      n_kv_heads=4, d_ff=512, vocab=512)
+    return ServingEngine(cfg, batch_capacity=4, s_max=16, n_max=n_max,
+                         quant_bits=8, seed=4, eos_id=eos_id, device="cuda")
+
+
+def _loop_prompts(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 512, size=n).tolist() for n in (5, 16, 9, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8, (8, 8), 4])
+def test_replayed_generate_equals_reference(cuda, bits):
+    from repro_torch.kernels.decode_loop import DeviceLoop
+    eng = _loop_engine()
+    prompts, caps = _loop_prompts(), [128, 40, 97, 3]
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    loop = eng._gen.graphs[eng._canon_bits(bits)]
+    assert isinstance(loop, DeviceLoop)
+    steps = int(a.lengths.max())
+    assert int(loop.iters) == loop.counted == steps
+    # the decode launches: each iteration's, and the warm-up step's
+    counts = ops.launch_counts()
+    assert loop.launches["flash_decode"] == 2
+    assert counts["flash_decode"] == 2 * (steps + 1)
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_replayed_chunked_equals_generate(cuda, k):
+    eng = _loop_engine()
+    prompts, caps = _loop_prompts(1), [128, 40, 97, 3]
+    want = eng.generate(prompts, caps)
+    got = eng.generate_via_chunks(prompts, caps, k=k)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+@pytest.mark.cuda
+def test_replayed_paged_equals_slab_with_a_refill_at_40(cuda):
+    from repro_torch.serving.kv_arena import KVArena
+    eng = _loop_engine()
+    prompts, caps = _loop_prompts(2), [128, 60, 97, 70]
+    want = eng.generate(prompts, caps)
+
+    def run(arena):
+        st = eng.start_chunked(prompts[:2], caps[:2], arena=arena)
+        st = eng.generate_chunked(st, 40)
+        _, _, _, t = eng.poll_chunked(st)
+        assert t == 40
+        st = eng.refill_chunked(st, [2, 3], prompts[2:], caps[2:], t_now=t)
+        while True:
+            st = eng.generate_chunked(st, 16)
+            out, lengths, done, t = eng.poll_chunked(st)
+            if eng.exhausted(lengths, done, st.caps_host, t):
+                break
+        if arena is not None:
+            eng.release_all(st)
+        return out, lengths
+
+    arena = KVArena.for_engines(eng, block_tokens=16)
+    (so, sl), (po, pl) = run(None), run(arena)
+    np.testing.assert_array_equal(po, so)
+    np.testing.assert_array_equal(pl, sl)
+    np.testing.assert_array_equal(so[:2], want.tokens[:2])
+    assert arena.free_pages == arena.total_pages
+    paged = eng.generate_via_chunks(prompts, caps, k=16, arena=arena)
+    np.testing.assert_array_equal(paged.tokens, want.tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_replayed_loop_stops_where_the_reference_loop_stops(cuda, paged):
+    """An EOS that row 0 emits at step 3: the device loop runs as many
+    iterations as ``generate_reference``'s loop, and the chunked ``t``
+    is that count."""
+    from repro_torch.serving.kv_arena import KVArena
+    prompts, caps = _loop_prompts(3), [128, 6, 5, 0]
+    eos = int(_loop_engine().generate_reference(prompts, caps).tokens[0, 3])
+    eng = _loop_engine(eos_id=eos)
+    ref = eng.generate_reference(prompts, caps)
+    steps = int(ref.lengths.max())
+    assert ref.lengths[0] <= 4 and steps < 128
+    got = eng.generate(prompts, caps)
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+    assert eng._gen.graphs[8].counted == steps
+    arena = KVArena.for_engines(eng, block_tokens=16) if paged else None
+    st = eng.generate_chunked(eng.start_chunked(prompts, caps, arena=arena),
+                              128)
+    out, lengths, done, t = eng.poll_chunked(st)
+    assert t == steps and st.graphs[8].counted == steps
+    np.testing.assert_array_equal(out, ref.tokens)
+    if paged:
+        eng.release_all(st)
+
+
+@pytest.mark.cuda
+def test_two_replays_of_the_same_state_are_bitwise_equal(cuda):
+    eng = _loop_engine(eos_id=-1)           # no row stops before its cap
+    prompts, caps = _loop_prompts(4), [128] * 4
+    runs = []
+    for _ in range(2):
+        st = eng.generate_chunked(eng.start_chunked(prompts, caps), 64)
+        out, lengths, done, t = eng.poll_chunked(st)
+        runs.append((out, lengths, t, st.cur.clone(),
+                     [c["k"].clone() for c in st.cache]))
+    (o1, l1, t1, c1, k1), (o2, l2, t2, c2, k2) = runs
+    np.testing.assert_array_equal(o1, o2)
+    np.testing.assert_array_equal(l1, l2)
+    assert t1 == t2 == 64 and torch.equal(c1, c2)
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
 
 
 # ---------------------------------------------------------------------------
