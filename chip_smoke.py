@@ -50,11 +50,22 @@ Phases (any failure exits non-zero and prints no result):
    0, 576, 640 and 647 (the eviction slot): K7 bitwise equal to K6 on the
    gathered slab and read through a wider tail's corner; K6 also at 32 x
    80 (BLOOM-3B's geometry, which the gate keeps off the tier); K4 and K5
-   also at d_head 128.
+   also at d_head 128.  The transformer family's other shapes: K6/K7 at
+   internvl2-26b's (D 6144, 48 heads of 128 over 8, G = 6) and
+   deepseek-coder-33b's (D 7168, 56 over 8, G = 7) decode shapes, a16 and
+   a8, one cluster of 8 blocks per KV head, K7 == K6 bitwise; K4 at
+   qwen3-1.7b's (16 x 128 over 8) and granite-moe-1b-a400m's (16 x 64 over
+   8) geometry, K5 at qwen3's; K1 and K2 at granite's router (K 1024, N
+   32) on the GEMVs at decode and the tensor cores at prefill, K2 bitwise.
 4. Small reference: reduced float32 BLOOM-3B (all precisions) and
    BLOOM-7B1 (d_head 128, the fused tier at W8A16 and W8A8) served on the
    card through the kernels give the same greedy tokens as the same
-   weights served on the CPU through the plain versions, slab and paged.
+   weights served on the CPU through the plain versions, slab and paged;
+   so do the six new configs at the test suite's reduced shapes
+   (deepseek-coder-33b, mistral-large-123b, qwen3-1.7b and qwen3 at
+   kv_bits=8, mixtral-8x22b with a window of 16: MoE and SWA together,
+   granite-moe-1b-a400m, internvl2-26b), at every precision, paged where
+   ``paged_capable``.
 5. Slice: full-width BLOOM-3B (30 layers, d_model 2560, vocab 250,880,
    bfloat16, random weights from a seed) serves four epochs through
    ``EpochRuntime`` + ``EngineExecutor``, three ways: ``dftsp`` at W8A16
@@ -110,6 +121,25 @@ Phases (any failure exits non-zero and prints no result):
    W8A16 cohort with the eager loop against the device loop, once each.
    W8A16 and W8A8 must hold one kept embedding table between them; the
    kept tables' bytes per precision are printed.
+8. The transformer family's other members at full width and depth, one
+   after another, each engine freed before the next (B = 8, s' = 512,
+   n_max = 128, bf16, random weights from a seed), each path counted on
+   its own: qwen3-1.7b (28 layers, qk-norm, tied vocab 151,936) with
+   ``dftsp`` epochs at W8A16 (K1, K4; no K6) and continuously over an
+   arena of half the slab's pages (K5), then the same weights with the
+   int8 KV cache as epochs and continuously over an arena with scale
+   pages (no K4, K5, K6 or K7; tier "kv8"); granite-moe-1b-a400m (24
+   layers, 32 experts top-8) with ``dftsp`` epochs at W8A16 and
+   ``dftsp:quant=auto,split=true`` epochs, slab only, two replays of one
+   captured MoE step bitwise equal and chunked == ``generate``;
+   internvl2-26b (48 layers, 256 zero patch embeddings ahead of each
+   prompt) with ``dftsp`` epochs at W8A16 (K6) and continuously over the
+   arena (K7), and its device memory peak.  ``generate ==
+   generate_reference`` on each engine (at each precision on granite),
+   paged == slab == ``generate`` on the paged-capable ones; the decode
+   step eager and as one CUDA graph, and ``generate`` with the eager loop
+   against the device loop; one step each of qwen3 at kv_bits=8, granite
+   and internvl2 traced with ``torch.profiler`` (top 15 device ops).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -169,6 +199,21 @@ TAIL7 = (40, 160)
 # attention output to bf16 between its calls: held by the relative error
 # of the whole output
 LIBRARY_REL = 0.03
+# the transformer family's other decode shapes, B = 8, W = 640: K4/K5 at
+# qwen3-1.7b's 16 heads of 128 over 8 KV heads (G = 2) and at
+# granite-moe-1b-a400m's 16 of 64 over 8; K6/K7 at internvl2-26b's (D 6144,
+# 48 of 128 over 8, G = 6) and at deepseek-coder-33b's (D 7168, 56 of 128
+# over 8, G = 7), one cluster of 8 blocks per KV head
+ATTN_QWEN3 = dict(ATTN, nh=16, nkv=8, dh=128)
+ATTN_GRANITE = dict(ATTN, nh=16, nkv=8, dh=64)
+ATTN_INTERNVL2 = dict(ATTN7, D=6144, nh=48, nkv=8)
+ATTN_DEEPSEEK = dict(ATTN7, D=7168, nh=56, nkv=8)
+FAMILY_ATTN = {"qwen3": (ATTN_QWEN3, 22), "granite": (ATTN_GRANITE, 23)}
+# granite-moe-1b-a400m's router: d_model 1024 -> 32 experts
+ROUTER_MATMULS = [("router", 1024, 32)]
+# the new configs of the port, each reduced for the small-reference phase
+FAMILY_ARCHS = ("deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
+                "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b")
 
 
 def log(msg: str) -> None:
@@ -660,7 +705,7 @@ def flash_decode_phase(shape=ATTN, seed=2):
     q4 = qb[:, :, None]                                  # (B, nh, 1, dh)
     lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         q4, kvs[i][0][:, :nv].transpose(1, 2),
-        kvs[i][1][:, :nv].transpose(1, 2))
+        kvs[i][1][:, :nv].transpose(1, 2), enable_gqa=nh != nkv)
     # the library call computes the same function (the first nv slots)
     _assert_close(lib(0)[:, :, 0], plain(0), LIBRARY_TOL,
                   "scaled_dot_product_attention yardstick")
@@ -778,7 +823,8 @@ def flash_decode_paged_phase(shape=ATTN, tail=PAGED["tail"], seed=3):
     def lib(i):
         g = kvs[i][:, ol].reshape(2, B, W, nkv, dh)      # one gather
         return F.scaled_dot_product_attention(
-            q4, g[0, :, :nv].transpose(1, 2), g[1, :, :nv].transpose(1, 2))
+            q4, g[0, :, :nv].transpose(1, 2), g[1, :, :nv].transpose(1, 2),
+            enable_gqa=nh != nkv)
 
     _assert_close(lib(0)[:, :, 0], plain(0), LIBRARY_TOL,
                   "page gather + scaled_dot_product_attention yardstick")
@@ -868,66 +914,21 @@ def _fused_check(fn_cuda, fn_plain, x, ws, kv_args, pos, W, dh, a8, what):
     return got, err
 
 
-def fused_phase():
-    """K6 and K7 at BLOOM-7B1's decode shape (B=8, W=640, n_valid 576,
-    32 x 128, D=4096, bf16, int8 weights), a16 and a8, each against its
-    plain version (bf16, and float32), at positions 0 (no valid slot),
-    576, 640 (a full window) and 647 (the eviction slot); K7 through a
-    random permutation of 16-slot pages of an arena of half the slab's
-    pages, bitwise equal to K6 on the gathered slab, and through the corner
-    of a wider page tail in place; one K6 case at BLOOM-3B's 32 x 80
-    (D=2560), whose d_head the gate keeps off this tier; K4 and K5 at
-    d_head 128.  Times K6 and K7 beside their bound, their plain versions
-    and the library composition of the same function."""
-    import torch.nn.functional as F
+def _fused_7b1_checks(x, kp, vp, table, ws):
+    """At BLOOM-7B1's shape: K7 through the corner of a wider page tail in
+    place, K6 at BLOOM-3B's 32 x 80 (D=2560), whose d_head the gate keeps
+    off this tier, and K4/K5 at d_head 128 against their plain versions (K5
+    bitwise == K4 on the gathered slab)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
-    from repro_torch.serving.kv_arena import N_RESERVED
     B, D, nh, nkv, dh, W, nv = (ATTN7[k] for k in ("B", "D", "nh", "nkv",
                                                    "dh", "W", "n_valid"))
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    bt = PAGED["bt"]
-    n_b = W // bt
-    P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
-    table = torch.stack([N_RESERVED + torch.randperm(
-        P - N_RESERVED, generator=gen, device=dev)[:n_b]
-        for _ in range(B)]).to(torch.int32)
+    dev, bt, P = x.device, kp.shape[1], kp.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
     tl = table.long()
-
-    def gather(pages):
-        return pages[tl].reshape((B, W) + tuple(pages.shape[2:]))
-
-    x = torch.randn((B, D), generator=gen, device=dev)
-    kp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
-    vp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
-    ks, vs = gather(kp), gather(vp)
-    errs = {"K6": [0.0, 0.0], "K7": [0.0, 0.0]}        # [bf16, f32]
-    wsets = {}
-    for a8 in (False, True):
-        ws, deq = _fused_weights(D, nh, nkv, dh, gen, dev, 8 if a8 else 16)
-        wsets[a8] = (ws, deq)
-        for dt, col in ((torch.bfloat16, 0), (torch.float32, 1)):
-            xd, kd, vd, ksd, vsd = (t.to(dt) for t in (x, kp, vp, ks, vs))
-            for pos in ((nv, 0, W, W + 7) if dt == torch.bfloat16
-                        else (nv, W + 7)):
-                g6, e6 = _fused_check(fd.flash_decode_fused_cuda,
-                                      fd.flash_decode_fused_plain, xd, ws,
-                                      (ksd, vsd), pos, W, dh, a8,
-                                      f"flash_decode_fused {dt}")
-                g7, e7 = _fused_check(fd.flash_decode_fused_paged_cuda,
-                                      fd.flash_decode_fused_paged_plain, xd,
-                                      ws, (kd, vd, table), pos, W, dh, a8,
-                                      f"flash_decode_fused_paged {dt}")
-                errs["K6"][col] = max(errs["K6"][col], e6)
-                errs["K7"][col] = max(errs["K7"][col], e7)
-                check(all(torch.equal(a, b) for a, b in zip(g7, g6)),
-                      f"flash_decode_fused_paged {dt} pos={pos} a8={a8}: "
-                      f"not bitwise equal to flash_decode_fused on the "
-                      f"gathered slab")
-    # a wider page tail, read through its leading corner in place
-    ws = wsets[False][0]
+    ks, vs = (p[tl].reshape((B, W) + tuple(p.shape[2:])) for p in (kp, vp))
     xb, kb, vb = (t.to(torch.bfloat16) for t in (x, kp, vp))
+    # a wider page tail, read through its leading corner in place
     wide = [torch.zeros((P, bt) + TAIL7, dtype=torch.bfloat16, device=dev)
             for _ in range(2)]
     wide[0][..., :nkv, :dh] = kb
@@ -968,9 +969,73 @@ def fused_phase():
                       tol, f"flash_decode_paged {dt} at 32 x 128")
         check(torch.equal(g4, g5), f"flash_decode_paged {dt} at 32 x 128: "
               f"not bitwise equal to flash_decode on the gathered slab")
-    log("fused phase: K6/K7 == plain (a16, a8; bf16, f32; pos 0, 576, 640, "
-        "647), K7 == K6 bitwise on the gathered slab, K7 on a corner view, "
-        "K6 at 32 x 80, K4/K5 at 32 x 128")
+    log("fused phase at BLOOM-7B1's shape: K7 on a corner view, K6 at 32 "
+        "x 80, K4/K5 at 32 x 128")
+
+
+def fused_phase(shape=ATTN7, seed=7):
+    """K6 and K7 at a decode shape, BLOOM-7B1's by default (B=8, W=640,
+    n_valid 576, 32 x 128, D=4096, bf16, int8 weights), a16 and a8, each
+    against its plain version (bf16, and float32), at positions 0 (no
+    valid slot), 576, 640 (a full window) and 647 (the eviction slot); K7
+    through a random permutation of 16-slot pages of an arena of half the
+    slab's pages, bitwise equal to K6 on the gathered slab.  At BLOOM-7B1's
+    shape also ``_fused_7b1_checks``.  Times K6 and K7 beside their bound,
+    their plain versions and the library composition of the same function
+    (SDPA with ``enable_gqa`` where G > 1)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_arena import N_RESERVED
+    B, D, nh, nkv, dh, W, nv = (shape[k] for k in ("B", "D", "nh", "nkv",
+                                                   "dh", "W", "n_valid"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bt = PAGED["bt"]
+    n_b = W // bt
+    P = N_RESERVED + math.ceil(B * n_b * PAGED["shrink"])
+    table = torch.stack([N_RESERVED + torch.randperm(
+        P - N_RESERVED, generator=gen, device=dev)[:n_b]
+        for _ in range(B)]).to(torch.int32)
+    tl = table.long()
+
+    def gather(pages):
+        return pages[tl].reshape((B, W) + tuple(pages.shape[2:]))
+
+    x = torch.randn((B, D), generator=gen, device=dev)
+    kp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    vp = torch.randn((P, bt, nkv, dh), generator=gen, device=dev)
+    ks, vs = gather(kp), gather(vp)
+    errs = {"K6": [0.0, 0.0], "K7": [0.0, 0.0]}        # [bf16, f32]
+    wsets = {}
+    for a8 in (False, True):
+        ws, deq = _fused_weights(D, nh, nkv, dh, gen, dev, 8 if a8 else 16)
+        wsets[a8] = (ws, deq)
+        for dt, col in ((torch.bfloat16, 0), (torch.float32, 1)):
+            xd, kd, vd, ksd, vsd = (t.to(dt) for t in (x, kp, vp, ks, vs))
+            for pos in ((nv, 0, W, W + 7) if dt == torch.bfloat16
+                        else (nv, W + 7)):
+                g6, e6 = _fused_check(fd.flash_decode_fused_cuda,
+                                      fd.flash_decode_fused_plain, xd, ws,
+                                      (ksd, vsd), pos, W, dh, a8,
+                                      f"flash_decode_fused {dt}")
+                g7, e7 = _fused_check(fd.flash_decode_fused_paged_cuda,
+                                      fd.flash_decode_fused_paged_plain, xd,
+                                      ws, (kd, vd, table), pos, W, dh, a8,
+                                      f"flash_decode_fused_paged {dt}")
+                errs["K6"][col] = max(errs["K6"][col], e6)
+                errs["K7"][col] = max(errs["K7"][col], e7)
+                check(all(torch.equal(a, b) for a, b in zip(g7, g6)),
+                      f"flash_decode_fused_paged {dt} pos={pos} a8={a8}: "
+                      f"not bitwise equal to flash_decode_fused on the "
+                      f"gathered slab")
+    xb, kb, vb = (t.to(torch.bfloat16) for t in (x, kp, vp))
+    if shape is ATTN7:
+        _fused_7b1_checks(x, kp, vp, table, wsets[False][0])
+    log(f"fused phase at {nh} x {dh} over {nkv} (D {D}, G {nh // nkv}, "
+        f"cluster {fd.fused_plan(D, nkv, nh // nkv, dh).cluster}): K6/K7 "
+        f"== plain (a16, a8; bf16, f32; pos 0, {nv}, {W}, {W + 7}), K7 == "
+        f"K6 bitwise on the gathered slab")
 
     # timing: input sets (weights + cache or arena) rotated through > 256 MB
     deq = wsets[False][1]
@@ -1000,7 +1065,7 @@ def fused_phase():
         v[:, nv] = (xb @ wv).reshape(B, nkv, dh)
         att = F.scaled_dot_product_attention(
             qh[:, :, None], k[:, :nv + 1].transpose(1, 2),
-            v[:, :nv + 1].transpose(1, 2))
+            v[:, :nv + 1].transpose(1, 2), enable_gqa=nh != nkv)
         return att.reshape(B, nh * dh) @ wo
 
     def lib6(i):
@@ -1066,9 +1131,11 @@ def fused_phase():
            f"attention row (fused_tolerances)")
     return {name: (errs[name][0], tol + f" (max f32 err {errs[name][1]:.3g})"
                    + ("; bitwise == flash_decode_fused on the gathered slab "
-                      "(f32 and bf16, a16 and a8); "
-                      f"{TAIL7}-tail corner read in place"
-                      if name == "K7" else "; a16 and a8, pos 0/576/640/647"),
+                      "(f32 and bf16, a16 and a8)"
+                      + (f"; {TAIL7}-tail corner read in place"
+                         if shape is ATTN7 else "")
+                      if name == "K7" else
+                      f"; a16 and a8, pos 0/{nv}/{W}/{W + 7}"),
                    out[name]) for name in ("K6", "K7")}
 
 
@@ -1140,6 +1207,38 @@ KERNELS = [
     ("flash_decode_fused_paged", "flash_decode_fused_paged",
      "src/repro_torch/csrc/flash_decode_fused.cu",
      "src/repro/kernels/flash_decode.py:260", "bloom7b1_continuous_w8a16"),
+    # the transformer family's other members: K1/K2 at granite's router
+    # (N = 32) on the GEMVs at decode and the tensor cores at prefill
+    ("quant_matmul_w8a16_gemv_router", "w8a16_gemv",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:62", "granite_dftsp_w8a16"),
+    ("quant_matmul_w8a16_tc_router", "w8a16_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:62", "granite_dftsp_w8a16"),
+    ("quant_matmul_w8a8_gemv_router", "w8a8_gemv",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:97", "granite_dftsp_auto_split"),
+    ("quant_matmul_w8a8_tc_router", "w8a8_tc",
+     "src/repro_torch/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul.py:97", "granite_dftsp_auto_split"),
+    # K4/K5 at G = 2: qwen3's 16 x 128 and granite's 16 x 64 over 8
+    ("flash_decode_qwen3", "flash_decode",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:40", "qwen3_dftsp_w8a16"),
+    ("flash_decode_paged_qwen3", "flash_decode_paged",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:403", "qwen3_continuous_w8a16"),
+    ("flash_decode_granite", "flash_decode",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:40", "granite_dftsp_w8a16"),
+    # K6/K7 at G = 6 (internvl2, served) and G = 7 (deepseek-coder-33b's
+    # shape, in the deepseek_coder_33b entry of the same row)
+    ("flash_decode_fused_internvl2", "flash_decode_fused",
+     "src/repro_torch/csrc/flash_decode_fused.cu",
+     "src/repro/kernels/flash_decode.py:182", "internvl2_dftsp_w8a16"),
+    ("flash_decode_fused_paged_internvl2", "flash_decode_fused_paged",
+     "src/repro_torch/csrc/flash_decode_fused.cu",
+     "src/repro/kernels/flash_decode.py:260", "internvl2_continuous_w8a16"),
 ]
 
 
@@ -1167,8 +1266,12 @@ def kernel_phase(parent=None):
     """Every kernel of KERNELS against its plain version, timed; with
     ``parent`` (a checkout of the parent commit), the quantized matmuls'
     decode calls are timed by that tree too, in this run on this card."""
-    results, qmm = {}, {}
+    results, qmm, router = {}, {}, {}
     fused = fused_phase()
+    torch.cuda.empty_cache()
+    # K6/K7 at internvl2-26b's and deepseek-coder-33b's shapes (G = 6, 7)
+    fused_gqa = {"internvl2": fused_phase(ATTN_INTERNVL2, 41),
+                 "deepseek": fused_phase(ATTN_DEEPSEEK, 43)}
     torch.cuda.empty_cache()
     parent_ms = parent_decode_call_ms(parent) if parent else {}
     if parent_ms:
@@ -1182,7 +1285,34 @@ def kernel_phase(parent=None):
                 fused[k][2]["call" + tag + "_ms"] = calls[k + tag]
                 fused[k][2]["parent" + tag + "_ms"] = parent_ms["fused"][k + tag]
     for name, counter, *_ in KERNELS:
-        if name.endswith("_gemv_bloom7b1"):
+        if name.endswith("_router"):
+            tier = counter.split("_")[0]
+            if tier not in router:
+                router[tier] = quant_matmul_phase(tier, ROUTER_MATMULS)
+            err, tol, both = router[tier]
+            regime = "decode" if "_gemv_" in name else "prefill"
+            t = dict(both[regime])
+            shape = (f"granite-moe-1b-a400m's router (K=1024, N=32), M="
+                     f"{DECODE_M if regime == 'decode' else PREFILL_M} "
+                     f"{regime} on the "
+                     f"{'GEMV' if regime == 'decode' else 'tensor cores'}"
+                     f", {_operands(counter)} (its weight, 32 KB, stays in "
+                     f"the L2 across the rotated copies)")
+        elif name.endswith("_internvl2"):
+            k = "K6" if counter == "flash_decode_fused" else "K7"
+            err, tol, t = fused_gqa["internvl2"][k]
+            d_err, _, d_t = fused_gqa["deepseek"][k]
+            t = dict(t, deepseek_coder_33b=dict(
+                max_abs_err=d_err, **{f: d_t[f] for f in (
+                    "ms", "a8_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}))
+            a = ATTN_INTERNVL2
+            shape = (f"one internvl2-26b layer's attention: B={a['B']} "
+                     f"D={a['D']} nh={a['nh']} nkv={a['nkv']} dh={a['dh']} "
+                     f"W={a['W']} n_valid={a['n_valid']}, bf16, int8 weights,"
+                     f" a16 (a8_ms: W8A8); deepseek_coder_33b: the same at "
+                     f"D=7168, 56 x 128 over 8")
+        elif name.endswith("_gemv_bloom7b1"):
             tier = counter[:-len("_gemv")]
             err, tol, both = quant_matmul_phase(
                 tier, LAYER_MATMULS_7B1, (("decode", DECODE_M),))
@@ -1218,18 +1348,23 @@ def kernel_phase(parent=None):
                         f", {ATTN7['W'] // PAGED['bt']} blocks of "
                         f"{PAGED['bt']} slots over {t['arena_pages']} pages"))
         elif counter == "flash_decode":
-            a, seed = (ATTN7, 12) if name.endswith("_bloom7b1") else (ATTN, 2)
+            family = FAMILY_ATTN.get(name.split("_")[-1])
+            a, seed = family or ((ATTN7, 12) if name.endswith("_bloom7b1")
+                                 else (ATTN, 2))
             err, tol, t = flash_decode_phase(a, seed)
             shape = (f"B={a['B']} W={a['W']} n_valid={a['n_valid']} "
-                     f"nh=nkv={a['nh']} dh={a['dh']} bf16, one call "
-                     f"(one layer of a decode step)")
+                     f"nh={a['nh']} nkv={a['nkv']} dh={a['dh']} bf16, one "
+                     f"call (one layer of a decode step)")
         elif counter == "flash_decode_paged":
-            a, tail, seed = ((ATTN7, TAIL7, 13) if name.endswith("_bloom7b1")
+            family = FAMILY_ATTN.get(name.split("_")[-1])
+            a, tail, seed = ((family[0], PAGED["tail"], family[1] + 10)
+                             if family else
+                             (ATTN7, TAIL7, 13) if name.endswith("_bloom7b1")
                              else (ATTN, PAGED["tail"], 3))
             err, tol, t = flash_decode_paged_phase(a, tail, seed)
             shape = (f"B={a['B']} {a['W'] // PAGED['bt']} blocks of "
                      f"{PAGED['bt']} slots (W={a['W']}) n_valid="
-                     f"{a['n_valid']} nh=nkv={a['nh']} dh={a['dh']} "
+                     f"{a['n_valid']} nh={a['nh']} nkv={a['nkv']} dh={a['dh']} "
                      f"bf16, each row on pages of its own ({t['arena_pages']}"
                      f" pages; shared_arena_ms: rows sharing "
                      f"{t['shared_arena_pages']} pages), one call (one "
@@ -1337,6 +1472,98 @@ def small_reference_phase(arch="bloom-3b", n_heads=4,
         f"{cfg.d_head}), card == CPU tokens at bits {list(bits_list)} "
         f"({tier} tier at 8 and (8, 8)), and paged (8-slot pages, k=5) at "
         f"bits {list(paged_bits)}")
+
+
+def small_family_phase(archs=FAMILY_ARCHS):
+    """The transformer family's other members, each at the test suite's
+    reduced shape (``launch.serve.reduced``: 2 layers, at most 4 experts,
+    a window of 16) at float32, and qwen3 also at kv_bits=8.  Where no
+    int8 rounding of a computed float sits between the two devices (bits
+    0, 8 and 4 over a float KV cache), the card (kernels) must give the
+    CPU's (plain versions) greedy tokens, slab and, where
+    ``paged_capable``, paged.  W8A8 rounds every matmul's float32 input to
+    int8 per row, and kv_bits=8 each token's k and v: a last-bit difference
+    between the devices' float32 sums then moves a value a whole int8 step,
+    which can part the greedy tokens at a near-tie (reduced
+    mistral-large-123b at W8A8 does, on one row of four, on an H100).
+    There the card must hold its own contracts bitwise
+    (``generate == generate_reference``, paged == slab == ``generate``),
+    and its tokens' agreement with the CPU's is reported.  The decode tier
+    each takes (fused at W8 for d_head 128 without qk-norm, flash else, kv8
+    with the int8 KV cache) must launch its slab kernel (none for kv8)."""
+    from repro_torch import bridge
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import reduced
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_arena import KVArena
+    import numpy as np
+    kw = dict(batch_capacity=4, s_max=32, n_max=16, quant_bits=8,
+              use_kernel=True)
+    cases = [(a, 16) for a in archs] + [("qwen3-1.7b", 8)]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (7, 32, 19, 3)]
+    caps = [16, 9, 16, 4]
+
+    def same(a, b):
+        return np.array_equal(a.tokens, b.tokens) \
+            and np.array_equal(a.lengths, b.lengths)
+
+    out = {}
+    for arch, kv_bits in cases:
+        cfg = reduced(get_arch(arch)).scaled(dtype="float32", kv_bits=kv_bits)
+        cpu = ServingEngine(cfg, device="cpu", seed=6, **kw)
+        gpu = ServingEngine(cfg, params=bridge.to_device(cpu._raw_params,
+                                                         "cuda"),
+                            device="cuda", **kw)
+        label = arch + ("" if kv_bits == 16 else "_kv8")
+        rec = out[label] = dict(tiers={}, paged=gpu.paged_capable,
+                                rows_equal_to_cpu={})
+        for bits in (0, 8, (8, 8), 4):
+            tier = rec["tiers"][str(bits)] = gpu.decode_tier(bits)
+            check(tier == cpu.decode_tier(bits), f"reduced {arch}: tiers "
+                  f"differ between the card and the CPU")
+            exact = kv_bits == 16 and bits != (8, 8)
+            ops.reset_launch_counts()
+            a = gpu.generate(prompts, caps, quant_bits=bits)
+            counts = ops.launch_counts()
+            slab = {"fused": "flash_decode_fused", "flash": "flash_decode",
+                    "kv8": None}[tier]
+            check(slab is None or counts[slab] > 0,
+                  f"reduced {arch} at bits={bits}: {slab} never launched")
+            check(slab is not None or not any(counts[c] for c in (
+                "flash_decode", "flash_decode_paged", "flash_decode_fused",
+                "flash_decode_fused_paged")),
+                  f"reduced {arch} kv8: a decode-attention kernel launched")
+            b = cpu.generate(prompts, caps, quant_bits=bits)
+            rec["rows_equal_to_cpu"][str(bits)] = int(
+                (a.tokens == b.tokens).all(1).sum())
+            check(not exact or same(a, b),
+                  f"reduced float32 {arch} at bits={bits}: card tokens "
+                  f"{a.tokens.tolist()} != CPU tokens {b.tokens.tolist()}")
+            if not exact:
+                check(same(a, gpu.generate_reference(prompts, caps,
+                                                     quant_bits=bits)),
+                      f"reduced {label} at bits={bits}: generate != "
+                      f"generate_reference on the card")
+            if gpu.paged_capable and bits in (0, 8, (8, 8)):
+                p = gpu.generate_via_chunks(prompts, caps, k=5,
+                                            quant_bits=bits,
+                                            arena=KVArena.for_engines(gpu, 8))
+                want = cpu.generate_via_chunks(
+                    prompts, caps, k=5, quant_bits=bits,
+                    arena=KVArena.for_engines(cpu, 8)) if exact else a
+                check(same(p, want),
+                      f"reduced float32 {label}, paged at bits={bits}: card "
+                      f"tokens != " + ("CPU tokens" if exact
+                                       else "the card's slab tokens"))
+        del cpu, gpu
+    log(f"small reference: the transformer family at float32 (reduced): "
+        f"card == CPU tokens at bits 0, 8 and 4 over a float KV cache, "
+        f"slab and paged where paged-capable; at W8A8 and with the int8 KV "
+        f"cache generate == generate_reference and paged == slab on the "
+        f"card, rows equal to the CPU's reported: {json.dumps(out)}")
+    return out
 
 
 class _W8A8Spans:
@@ -1791,9 +2018,13 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
                             step_timing: bool = True, loop_turns: int = 3):
     """Chunked decode over the arena, over the slab and ``generate`` give
     bitwise equal tokens at ``bits``; so do a paged and a slab cohort
-    refilled at step 40.  Also times one paged decode step, eager and as a
-    CUDA-graph replay, and a full paged cohort with the eager loop against
-    the device loop (``loop_timing``, ``loop_turns`` turns)."""
+    refilled at step 40.  For a VLM only the rows not refilled must agree
+    there: its prompt pass fills cache slots from s_max on, which the slab
+    keeps for a refilled row and the arena maps to the zero page, in the
+    reference as here (F5, ``ROADMAP.md`` Queue 3).  Also times one paged
+    decode step, eager and as a CUDA-graph replay, and a full paged cohort
+    with the eager loop against the device loop (``loop_timing``,
+    ``loop_turns`` turns)."""
     import numpy as np
     from repro_torch.serving.kv_arena import ZERO_PAGE, KVArena
     arena = KVArena.for_engines(engine, block_tokens=PAGED["bt"])
@@ -1826,9 +2057,11 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
         return out, lengths
 
     (so, sl), (po, pl) = refilled(None), refilled(arena)
-    check(np.array_equal(so, po) and np.array_equal(sl, pl),
-          f"paged cohort refilled at step 40 != slab cohort refilled at 40, "
-          f"{what}")
+    rows = half if engine.cfg.family == "vlm" else len(prompts)
+    check(np.array_equal(so[:rows], po[:rows])
+          and np.array_equal(sl[:rows], pl[:rows]),
+          f"paged cohort refilled at step 40 != slab cohort refilled at 40 "
+          f"(rows below {rows}), {what}")
     check(arena.free_pages == arena.total_pages,
           "paged equivalence: pages still leased")
     check(all(not leaf[:, ZERO_PAGE].any()
@@ -1837,7 +2070,11 @@ def paged_equivalence_phase(engine, prompts, caps, k: int = 16, bits=8,
     log(f"paged == slab == generate, {what} ({len(prompts)} rows, k={k}): "
         f"generate {ms[0]:.0f} ms, chunked slab {ms[1]:.0f} ms, chunked "
         f"paged {ms[2]:.0f} ms; refilled at t=40 (rows {half}..): paged == "
-        f"slab, lengths {pl.tolist()}")
+        f"slab, lengths {pl.tolist()}"
+        + ("" if rows == len(prompts) else
+           f" (rows below {half} only, F5; refilled rows equal: "
+           f"{int((so[half:] == po[half:]).all(1).sum())} of "
+           f"{len(prompts) - half})"))
     out = dict(generate_ms=ms[0], chunked_slab_ms=ms[1],
                chunked_paged_ms=ms[2])
     if not step_timing:
@@ -2087,6 +2324,8 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False,
                decode_device_ms_per_step=dev_ms,
                decode_idle_share=1.0 - dev_ms / step_ms,
                kernel_calls_per_step=calls, aten_ops_per_step=n_ops.n)
+    # a VLM's prompt pass also holds its image positions
+    n_img = engine.cfg.vlm.n_img_tokens if engine.cfg.family == "vlm" else 0
     if loop:
         out["loop"] = loop_timing(engine, prompts, bits, label, pre_ms=pre_ms,
                                   dev_ms=dev_ms)
@@ -2094,9 +2333,10 @@ def decode_step_timing(engine, prompts, bits, label, unfused=False,
         out["in_prefill"] = w8a8_prefill_breakdown(engine, params, tokens)
         out["in_decode"] = w8a8_decode_breakdown(engine, params, cache, cur)
     log(f"{engine.cfg.arch_id} {label}: prefill (M="
-        f"{len(prompts) * engine.s_max}) {pre_ms:.1f} ms; decode step "
-        f"{step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle share "
-        f"{1.0 - dev_ms / step_ms:.3f}); per step: kernel calls {calls}, "
+        f"{len(prompts) * (engine.s_max + n_img)}) {pre_ms:.1f} ms; decode "
+        f"step {step_ms:.2f} ms eager, {dev_ms:.2f} ms of device work (idle "
+        f"share {1.0 - dev_ms / step_ms:.3f}); per step: kernel calls "
+        f"{calls}, "
         f"{n_ops.n} ATen ops dispatched")
     del cache
     return out
@@ -2245,6 +2485,184 @@ def slice_7b1_phase(cfg, device="cuda", batch=BATCH, s_max=S_MAX,
                 kept_tables=kept_tables(engine), captures=engine.captures)
 
 
+# The transformer family's other members at full width and depth.  Every
+# attention kernel and every quantized tier the others do not serve.
+ATTN_COUNTERS = ("flash_decode", "flash_decode_paged", "flash_decode_fused",
+                 "flash_decode_fused_paged")
+W8A16_ONLY = ("w8a8", "w8a8_tc", "w8a8_gemv", "w4a16", "w4a16_tc",
+              "w4a16_gemv")
+
+
+def _free():
+    """Return the memory of engines that went out of scope to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _family_engine(cfg, what, **kw):
+    """A W8 engine of ``cfg`` at B = 8, s' = 512, n_max = 128 with random
+    weights from seed 0 (``kw``: params of another engine to share)."""
+    from repro_torch.serving.engine import ServingEngine
+    engine, init_ms = _timed(lambda: ServingEngine(
+        cfg, quant_bits=8, seed=0, batch_capacity=BATCH, s_max=S_MAX,
+        n_max=N_MAX, device="cuda", **kw))
+    log(f"slice: {cfg.arch_id}{what} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head} over "
+        f"{cfg.n_kv_heads}, vocab {cfg.vocab}, {cfg.dtype}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+           if cfg.is_moe else "")
+        + (f", kv_bits {cfg.kv_bits}" if cfg.kv_bits != 16 else "")
+        + f") built and quantized to W8 in {init_ms:.0f} ms")
+    return engine
+
+
+def qwen3_phase(cfg, n_epochs: int = 2):
+    """qwen3-1.7b (28 layers, qk-norm, 16 heads of 128 over 8, tied vocab
+    151,936): ``dftsp`` epochs at W8A16 (K1 and K4; qk-norm keeps it off
+    the fused tier, so K6 must not launch) and continuously over an arena
+    of half the slab's pages (K5); then a kv_bits=8 engine on the same
+    weights, as epochs and continuously over an arena with scale pages,
+    where no decode-attention kernel launches (tier "kv8").  On both:
+    ``generate == generate_reference`` at W8A16 and W8A8, paged == slab ==
+    ``generate``, and the decode step's times; one kv8 step traced."""
+    prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
+    out = dict(runs={}, timings={}, paged={})
+    engine = _family_engine(cfg, "")
+    check(engine.decode_tier(8) == engine.decode_tier((8, 8)) == "flash",
+          f"qwen3: decode tier {engine.decode_tier(8)}")
+    kv8 = _family_engine(cfg.scaled(kv_bits=8), " (int8 KV cache)",
+                         params=engine._raw_params)
+    check(kv8.decode_tier(8) == kv8.decode_tier((8, 8)) == "kv8",
+          f"qwen3 kv8: decode tier {kv8.decode_tier(8)}")
+    for eng, tag, launched, idle, cont_launched in (
+            (engine, "", ("flash_decode",),
+             ("flash_decode_fused", "flash_decode_fused_paged",
+              "flash_decode_paged"), ("flash_decode_paged",)),
+            (kv8, "_kv8", (), ATTN_COUNTERS, ())):
+        out["runs"][f"qwen3{tag}_dftsp_w8a16"] = epoch_path(
+            eng, f"qwen3{tag}_dftsp_w8a16", "W8A16", "dftsp",
+            launched + ("w8a16", "w8a16_tc", "w8a16_gemv", "decode_loop"),
+            idle + W8A16_ONLY, 10.0, n_epochs)
+        for bits in (8, (8, 8)):
+            _check_generate(eng, prompts, caps, bits)
+        out["runs"][f"qwen3{tag}_continuous_w8a16"] = continuous_phase(
+            eng, launched=cont_launched + ("w8a16", "w8a16_gemv",
+                                           "decode_loop"),
+            idle=ATTN_COUNTERS if tag else ("flash_decode",
+                                            "flash_decode_fused",
+                                            "flash_decode_fused_paged"),
+            label=f"qwen3{tag}_continuous_w8a16")
+        if tag:
+            from repro_torch.serving.kv_arena import KVArena
+            leaves = sorted(KVArena.for_engines(eng, PAGED["bt"]).buffers())
+            check(leaves == ["k", "ks", "v", "vs"],
+                  f"qwen3 kv8 arena leaves {leaves}")
+        out["paged"][tag or "fp"] = paged_equivalence_phase(
+            eng, prompts, caps, bits=8, step_timing=False)
+        out["timings"][f"W8A16{tag}"] = decode_step_timing(
+            eng, prompts, 8, f"W8A16{tag}", loop=True)
+        if tag:
+            out["trace_kv8"] = trace_steps(eng, prompts, 8)
+    log(f"slice: qwen3-1.7b: generate == generate_reference at W8A16 and "
+        f"W8A8, paged == slab == generate, with the fp and the int8 KV cache")
+    out["captures"] = engine.captures + kv8.captures
+    return out
+
+
+def granite_phase(cfg, n_epochs: int = 2):
+    """granite-moe-1b-a400m (24 layers, 32 experts top-8, 16 heads of 64
+    over 8, tied vocab 49,155), slab only (MoE is not paged-capable):
+    ``dftsp`` epochs at W8A16 and ``dftsp:quant=auto,split=true`` epochs
+    (the router's decode calls on its W8A8 epochs count as ``w8a8_gemv``);
+    ``generate == generate_reference`` at each precision; two replays of
+    one captured MoE step from the same state give bitwise equal tokens;
+    chunked == ``generate``; the decode step's times, and one step
+    traced."""
+    import numpy as np
+    prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
+    engine = _family_engine(cfg, "")
+    check(not engine.paged_capable and engine.decode_tier(8) == "flash",
+          "granite: expected a slab-only engine on the unfused tier")
+    runs = {"granite_dftsp_w8a16": epoch_path(
+        engine, "granite_dftsp_w8a16", "W8A16", "dftsp",
+        ("w8a16", "w8a16_tc", "w8a16_gemv", "flash_decode", "decode_loop"),
+        ATTN_COUNTERS[1:] + W8A16_ONLY, 10.0, n_epochs)}
+    runs["granite_dftsp_auto_split"] = epoch_path(
+        engine, "granite_dftsp_auto_split", "W8A16",
+        "dftsp:quant=auto,split=true",
+        ("w8a8", "w8a8_tc", "w8a8_gemv", "flash_decode", "decode_loop"),
+        ATTN_COUNTERS[1:], 10.0, n_epochs)
+    for bits in (8, (8, 8), 4, 0):
+        _check_generate(engine, prompts, caps, bits)
+    # two replays of the engine's captured step from the same state
+    n0 = len(engine.captures)
+    a = engine.generate(prompts, caps)
+    b = engine.generate(prompts, caps)
+    check(len(engine.captures) == n0 and np.array_equal(a.tokens, b.tokens)
+          and np.array_equal(a.lengths, b.lengths),
+          "granite: two replays of one captured MoE step differ")
+    c, chunked_ms = _timed(lambda: engine.generate_via_chunks(
+        prompts, caps, k=16))
+    check(np.array_equal(c.tokens, a.tokens)
+          and np.array_equal(c.lengths, a.lengths),
+          "granite: chunked decode (k=16) != generate")
+    log(f"slice: granite-moe-1b-a400m: generate == generate_reference at "
+        f"W8A16, W8A8, W4A16 and bf16; two replays bitwise equal; chunked "
+        f"(k=16, {chunked_ms:.0f} ms) == generate")
+    timings = {"W8A16": decode_step_timing(engine, prompts, 8, "W8A16",
+                                           loop=True)}
+    return dict(runs=runs, timings=timings, chunked_ms=chunked_ms,
+                trace=trace_steps(engine, prompts, 8),
+                captures=engine.captures)
+
+
+def internvl2_phase(cfg, n_epochs: int = 2):
+    """internvl2-26b's language model (48 layers, D 6144, 48 heads of 128
+    over 8, vocab 92,553; 256 zero patch embeddings ahead of each prompt),
+    once every earlier engine is freed: ``dftsp`` epochs at W8A16 (K6; no
+    unfused decode kernel), continuously over the arena (K7);
+    ``generate == generate_reference`` and paged == slab == ``generate`` at
+    W8A16 and W8A8; the decode step's times, one step traced; the device
+    memory peak."""
+    torch.cuda.reset_peak_memory_stats()
+    prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
+    engine = _family_engine(cfg, "")
+    for bits, tier in ((8, "fused"), ((8, 8), "fused"), (0, "flash")):
+        check(engine.decode_tier(bits) == tier,
+              f"internvl2 at bits={bits}: decode tier "
+              f"{engine.decode_tier(bits)}, expected {tier}")
+    unfused = ("flash_decode", "flash_decode_paged")
+    runs = {"internvl2_dftsp_w8a16": epoch_path(
+        engine, "internvl2_dftsp_w8a16", "W8A16", "dftsp",
+        ("flash_decode_fused", "w8a16", "w8a16_tc", "w8a16_gemv",
+         "decode_loop"),
+        unfused + ("flash_decode_fused_paged",) + W8A16_ONLY, 10.0,
+        n_epochs)}
+    for bits in (8, (8, 8)):
+        _check_generate(engine, prompts, caps, bits)
+    runs["internvl2_continuous_w8a16"] = continuous_phase(
+        engine, launched=("flash_decode_fused_paged", "w8a16", "w8a16_tc",
+                          "w8a16_gemv", "decode_loop"),
+        idle=unfused + ("flash_decode_fused",),
+        label="internvl2_continuous_w8a16", n_epochs=2)
+    paged = {str(bits): paged_equivalence_phase(
+        engine, prompts, caps, bits=bits, step_timing=False)
+        for bits in (8, (8, 8))}
+    log("slice: internvl2-26b: generate == generate_reference and paged == "
+        "slab == generate at W8A16 and W8A8")
+    timings = {"W8A16": decode_step_timing(engine, prompts, 8, "W8A16",
+                                           loop=True)}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"slice: internvl2-26b: device memory peak {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    trace = trace_steps(engine, prompts, 8)
+    return dict(runs=runs, timings=timings, paged=paged, trace=trace,
+                kept_tables=kept_tables(engine), captures=engine.captures,
+                memory_peak_bytes=peak)
+
+
 def kept_tables(engine):
     """The dequantized embedding tables the engine keeps, in bytes per
     precision and counted once per storage: W8A16 and W8A8 quantize the
@@ -2343,19 +2761,39 @@ def main() -> int:
         small_reference_phase()
         small_reference_phase("bloom-7b1", n_heads=2, bits_list=(8, (8, 8)),
                               paged_bits=(8, (8, 8)), tier="fused")
+        small_family_phase()
         from repro_torch.config import get_arch
         cfg = get_arch("bloom-3b")
         check(cfg.d_model == 2560 and cfg.n_layers == 30
               and cfg.vocab == 250880 and cfg.dtype == "bfloat16",
               f"unexpected bloom-3b config {cfg}")
         sl = slice_phase(cfg)
-        torch.cuda.empty_cache()                 # BLOOM-3B's engines are gone
+        _free()                                  # BLOOM-3B's engines are gone
         cfg7 = get_arch("bloom-7b1")
         check(cfg7.d_model == 4096 and cfg7.n_layers == 30
               and cfg7.n_heads == 32 and cfg7.d_head == 128
               and cfg7.vocab == 250880 and cfg7.dtype == "bfloat16",
               f"unexpected bloom-7b1 config {cfg7}")
         sl7 = slice_7b1_phase(cfg7)
+        _free()
+        fam = {}
+        for arch, want, phase in (
+                ("qwen3-1.7b", dict(n_layers=28, d_model=2048, n_heads=16,
+                                    n_kv_heads=8, d_head=128, vocab=151936,
+                                    qk_norm=True), qwen3_phase),
+                ("granite-moe-1b-a400m", dict(n_layers=24, d_model=1024,
+                                              n_heads=16, n_kv_heads=8,
+                                              d_head=64, vocab=49155),
+                 granite_phase),
+                ("internvl2-26b", dict(n_layers=48, d_model=6144, n_heads=48,
+                                       n_kv_heads=8, d_head=128,
+                                       vocab=92553), internvl2_phase)):
+            c = get_arch(arch)
+            check(c.dtype == "bfloat16" and all(
+                getattr(c, k) == v for k, v in want.items()),
+                  f"unexpected {arch} config {c}")
+            fam[arch] = phase(c)
+            _free()                        # each engine goes before the next
     # K2 and the W8A8 tier's eager activation quantization, timed inside
     # one W8A8 prefill of each model
     for name, s_ in (("quant_matmul_w8a8_tc", sl),
@@ -2367,8 +2805,12 @@ def main() -> int:
         kernels[name]["in_w8a8_decode"] = s_["timings"]["W8A8"]["in_decode"]
     log(f"summary: {json.dumps(sl)}")
     log(f"summary bloom-7b1: {json.dumps(sl7)}")
+    for arch, f in fam.items():
+        log(f"summary {arch}: {json.dumps(f)}")
 
     runs = {**sl["runs"], **sl7["runs"]}
+    for f in fam.values():
+        runs.update(f["runs"])
     rows = []
     for name, counter, source, replaces, path in KERNELS:
         rows.append(dict(

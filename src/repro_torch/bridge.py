@@ -1,8 +1,11 @@
 """Parameters (and paged-arena contents) of the JAX package, as the port's.
 
-The JAX package's dense transformer keeps its params as nested dicts with
-every layer leaf stacked on axis 0 (it scans over layers); the port keeps
-a list of per-layer dicts.  ``from_jax_params`` takes that tree handed
+The JAX package's transformer family (dense, MoE, VLM) keeps its params
+as nested dicts with every layer leaf stacked on axis 0 (it scans over
+layers); the port keeps a list of per-layer dicts.  Slicing ``[i]`` takes
+each leaf of layer i, whatever its rank: an MoE layer's (L, E, D, F)
+expert weights become (E, D, F), its router (L, D, E) becomes (D, E), and
+qk-norm's (L, dh) scales become (dh,).  ``from_jax_params`` takes that tree handed
 over as numpy arrays (``jax.device_get(params)``; bfloat16 arrays come
 through as ml_dtypes' bfloat16 and are reinterpreted, not converted) and
 returns the port's tree on ``device``.  Quantized trees are not bridged:
@@ -47,7 +50,7 @@ def _layer(tree, i):
 
 
 def from_jax_params(params: Any, n_layers: int, device="cuda") -> Any:
-    """Port tree from a JAX dense-transformer param tree of numpy arrays,
+    """Port tree from a JAX transformer param tree of numpy arrays,
     on ``device`` (a CUDA device must exist; pass "cpu" for the CPU)."""
     out = {k: _convert(v, device) for k, v in params.items() if k != "layers"}
     out["layers"] = [_convert(_layer(params["layers"], i), device)

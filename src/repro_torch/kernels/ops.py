@@ -149,13 +149,13 @@ def fusable_decode(p, cfg) -> bool:
 
 def decode_kernel_tier(p, cfg) -> str:
     """Which decode-attention tier a kernel-routed step takes for layer
-    params ``p`` under ``cfg``: ``"fused"`` (``flash_decode_fused[_paged]``)
-    when ``fusable_decode`` holds, else ``"flash"``
-    (``flash_decode[_paged]``).  The int8 KV cache (``kv_bits == 8``, the
-    JAX package's ``"kv8"`` tier) is not ported yet."""
+    params ``p`` under ``cfg``: ``"kv8"`` for an int8 KV cache (``kv_bits
+    == 8``: the cache is dequantized and attention is the plain masked
+    softmax, no decode-attention kernel, as in the JAX package),
+    ``"fused"`` (``flash_decode_fused[_paged]``) when ``fusable_decode``
+    holds, else ``"flash"`` (``flash_decode[_paged]``)."""
     if cfg.kv_bits == 8:
-        raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported "
-                                  "yet; see ROADMAP.md")
+        return "kv8"
     return "fused" if fusable_decode(p, cfg) else "flash"
 
 

@@ -5,8 +5,13 @@ The paper end-to-end: Poisson arrivals -> DFTSP batch selection under the
 P1 constraints -> batched prefill + decode on the model, on a CUDA device
 by default, with decode attention through the ``flash_decode`` kernel.
 Reduced configs also run on the CPU with ``--device cpu``, where the
-kernels' plain versions stand in.  The JAX launcher's ``--tpu-env`` is left
-out: the port has no cost model of its own device yet.
+kernels' plain versions stand in.  ``--arch`` takes every config the port
+carries (``config._ARCHS``: dense, MoE and VLM); ``--reduced`` cuts one to
+the reduced shape the test suite uses for it (``tests/conftest.py``
+``REDUCTIONS`` and ``reduced_cfg``: 2 layers, d_model <= 256, at most 4
+experts, a sliding window of 16), where the JAX launcher applies one
+shape to every arch.  The JAX launcher's ``--tpu-env`` is left out: the
+port has no cost model of its own device yet.
 
 Usage:
   python -m repro_torch.launch.serve --arch bloom-3b --epochs 5 --rate 10 \
@@ -15,15 +20,49 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
-from repro_torch.config import get_arch
+from repro_torch.config import ModelConfig, MoEConfig, get_arch
 from repro_torch.core.environment import paper_env
 from repro_torch.core.policy import get_policy
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.runtime import EngineExecutor, EpochRuntime
 
-REDUCED = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
-               d_ff=512, vocab=2048)
+# the test suite's reduced shape of each carried arch (tests/conftest.py)
+REDUCTIONS = {
+    "bloom-3b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                     d_ff=512, vocab=512),
+    "bloom-7b1": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                      d_ff=512, vocab=512),
+    "opt-13b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                    d_ff=512, vocab=512),
+    "olmo-1b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                    d_ff=256, vocab=512),
+    "deepseek-coder-33b": dict(n_layers=2, d_model=128, n_heads=4,
+                               n_kv_heads=2, d_ff=256, vocab=512),
+    "mistral-large-123b": dict(n_layers=2, d_model=256, n_heads=8,
+                               n_kv_heads=2, d_ff=512, vocab=512),
+    "qwen3-1.7b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                       d_ff=256, vocab=512),
+    "mixtral-8x22b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                          d_ff=128, vocab=512),
+    "granite-moe-1b-a400m": dict(n_layers=2, d_model=128, n_heads=4,
+                                 n_kv_heads=2, d_ff=64, vocab=512),
+    "internvl2-26b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                          d_ff=256, vocab=512),
+}
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` at the test suite's reduced shape: its ``REDUCTIONS``
+    entry, at most 4 experts (top-k at most 2), a window of 16."""
+    cfg = cfg.scaled(**REDUCTIONS[cfg.arch_id])
+    if cfg.is_moe and cfg.moe.n_experts > 4:
+        cfg = dataclasses.replace(
+            cfg, moe=MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2)))
+    if cfg.sliding_window:
+        cfg = dataclasses.replace(cfg, sliding_window=16)
+    return cfg
 
 
 def main(argv=None):
@@ -55,9 +94,7 @@ def main(argv=None):
     env = paper_env(args.arch, args.quant)
 
     if args.reduced:
-        red = dict(REDUCED)
-        red["n_kv_heads"] = min(cfg.n_kv_heads, red["n_heads"])
-        cfg = cfg.scaled(**red)
+        cfg = reduced(cfg)
     engine = ServingEngine(cfg, batch_capacity=args.batch_capacity,
                            s_max=args.s_max, n_max=args.n_max,
                            quant_bits=args.bits,

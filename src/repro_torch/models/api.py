@@ -1,4 +1,5 @@
-"""Model API (port of ``repro.models.api``, dense family only).
+"""Model API (port of ``repro.models.api``: the transformer family, dense,
+MoE and VLM; the recurrent, hybrid and audio families are not ported yet).
 
 ``build_model`` returns a :class:`Model` whose members are plain
 functions over a params dict, as in the JAX package.
@@ -47,9 +48,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
+            f"are)")
     from repro_torch.models import transformer
     return Model(
         cfg=cfg,

@@ -1,15 +1,21 @@
-"""Shared building blocks of the dense transformer (port of the dense
-subset of ``repro.models.common``): norms, rotary embeddings, GQA
-attention (prefill, and decode over a slot cache or a paged arena), FFN.
+"""Shared building blocks of the transformer family (port of
+``repro.models.common``): norms, qk-norm, rotary embeddings, GQA attention
+(prefill, full or sliding-window, and decode over a slot cache or a paged
+arena, float or int8 KV), FFN and the top-k capacity-dispatch MoE layer.
 
 Functions take params explicitly, as in the JAX package, with tensors in
 the JAX package's layouts.  Prefill attention is plain matmul/softmax (it
-is plain XLA in the JAX package); decode attention goes through
-``kernels.ops.flash_decode`` / ``flash_decode_paged``, or, for int8
+is plain XLA in the JAX package); decode attention over a float cache goes
+through ``kernels.ops.flash_decode`` / ``flash_decode_paged``, or, for int8
 projections, the fused ``flash_decode_fused`` / ``flash_decode_fused_paged``
 (``use_kernel``, the default; switching it off is for CPU tensors only).
-Cache writes update the cache tensors in place (the JAX package returns new
-arrays): a decode step then costs no cache copy.
+Over an int8 KV cache (``kv_bits=8``) decode attention dequantizes the
+cache and takes the plain masked softmax on every device, as the JAX
+package does (its ``"kv8"`` tier has no kernel).  The MoE experts' einsums
+run on the dequantized expert weights, outside any kernel, as in the JAX
+package; the router goes through ``mm``.  Cache writes update the cache
+tensors in place (the JAX package returns new arrays): a decode step then
+costs no cache copy.
 """
 from __future__ import annotations
 
@@ -69,12 +75,16 @@ def make_norm_params(cfg: ModelConfig, dtype, device) -> Optional[torch.Tensor]:
 
 def make_attn_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     dm, dh = cfg.d_model, cfg.d_head
-    return {
+    p = {
         "wq": dense_init(gen, (dm, cfg.n_heads * dh), 0, dtype),
         "wk": dense_init(gen, (dm, cfg.n_kv_heads * dh), 0, dtype),
         "wv": dense_init(gen, (dm, cfg.n_kv_heads * dh), 0, dtype),
         "wo": dense_init(gen, (cfg.n_heads * dh, dm), 0, dtype),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
+    return p
 
 
 def make_ffn_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
@@ -83,6 +93,18 @@ def make_ffn_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     if cfg.act == "silu":   # gated (SwiGLU)
         p["w3"] = dense_init(gen, (dm, df), 0, dtype)
     p["w2"] = dense_init(gen, (df, dm), 0, dtype)
+    return p
+
+
+def make_moe_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    """The router (D, E) and the experts' stacked FFN weights (E, D, F) /
+    (E, F, D), fan-in over axis 1 as in the JAX package."""
+    E, dm, df = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": dense_init(gen, (dm, E), 0, dtype),
+         "w1": dense_init(gen, (E, dm, df), 1, dtype),
+         "w2": dense_init(gen, (E, df, dm), 1, dtype)}
+    if cfg.act == "silu":
+        p["w3"] = dense_init(gen, (E, dm, df), 1, dtype)
     return p
 
 
@@ -103,6 +125,14 @@ def apply_norm(kind: str, w: Optional[torch.Tensor], x: torch.Tensor,
     if w is not None:
         y = y * w.to(torch.float32)
     return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm over the head dim (Qwen3's qk-norm)."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -137,6 +167,9 @@ def qkv_proj(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, dh)
     k = mm(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
     v = mm(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -210,21 +243,39 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Decode attention over a slot cache
 # ---------------------------------------------------------------------------
-# Cache layout per layer: k/v (B, W, nkv, dh), W = cache capacity.
-# Position p writes slot p % W; rope is applied before caching, so a
-# validity count suffices for masking.
+# Cache layout per layer: k/v (B, W, nkv, dh), W = cache capacity (the
+# context, or the sliding window).  Position p writes slot p % W; rope is
+# applied before caching, so a validity count suffices for masking.  With
+# kv_bits=8 the k/v leaves are int8 and "ks"/"vs" (B, W, nkv) hold one
+# float32 scale per (slot, KV head).
 
 
-def cache_write(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                k1: torch.Tensor, v1: torch.Tensor, pos) -> None:
-    """Write one token's k/v (B,1,nkv,dh) at slot pos % W, in place
-    (``index_copy_`` at a device index: pos is an int, a 0-d tensor or a
-    ``DecodePos``)."""
-    W = cache_k.shape[1]
-    slot = kops.decode_pos(pos, k1.device).derive(
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, nkv, dh) -> int8 values + per-(B, S, nkv) float32 scales.
+    The scale is ``absmax / 127.0``, a divide, as in the JAX package (the
+    activations' ``quantize_rowwise`` multiplies by float32(1/127)
+    instead)."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def cache_write(pairs, pos) -> None:
+    """Write each (cache leaf (B, W, ...), one token's value (B, 1, ...))
+    pair at slot pos % W, in place (``index_copy_`` at a device index: pos
+    is an int, a 0-d tensor or a ``DecodePos``)."""
+    W = pairs[0][0].shape[1]
+    slot = kops.decode_pos(pos, pairs[0][1].device).derive(
         ("slot", W), lambda p: (p % W).reshape(1).long())
-    cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
+    for leaf, val in pairs:
+        leaf.index_copy_(1, slot, val.to(leaf.dtype))
 
 
 def _rope_positions(dp, B: int) -> torch.Tensor:
@@ -264,10 +315,10 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         o, k1, v1 = kops.flash_decode_fused(
             x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], cache_k, cache_v,
             dp, rope_theta=cfg.rope_theta, use_rope=use_rope)
-        cache_write(cache_k, cache_v, k1[:, None], v1[:, None], dp)
+        cache_write(((cache_k, k1[:, None]), (cache_v, v1[:, None])), dp)
         return o[:, None]
     q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
-    cache_write(cache_k, cache_v, k1, v1, dp)
+    cache_write(((cache_k, k1), (cache_v, v1)), dp)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
@@ -281,12 +332,29 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
                            cache: Dict[str, torch.Tensor], pos,
                            use_kernel: bool = True) -> torch.Tensor:
-    """Dict-cache decode step ({"k", "v"} float cache; updated in place).
-    The int8 KV cache (kv_bits=8) is not ported yet."""
-    if cfg.kv_bits == 8:
-        raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
-    return decode_attention(p, cfg, x, cache["k"], cache["v"], pos,
-                            use_kernel=use_kernel)
+    """Dict-cache decode step, updated in place: {"k", "v"} float cache
+    through ``decode_attention``, or, with kv_bits=8, the int8 cache plus
+    its {"ks", "vs"} scales: the token's k/v are quantized and written at
+    slot pos % W, the whole cache is dequantized and attention is the plain
+    masked softmax on every device (the JAX package's ``"kv8"`` tier, which
+    has no kernel; ``use_kernel`` does not apply)."""
+    if cfg.kv_bits != 8:
+        return decode_attention(p, cfg, x, cache["k"], cache["v"], pos,
+                                use_kernel=use_kernel)
+    B = x.shape[0]
+    dp = kops.decode_pos(pos, x.device)
+    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
+    k1q, k1s = quantize_kv(k1)
+    v1q, v1s = quantize_kv(v1)
+    cache_write(((cache["k"], k1q), (cache["v"], v1q), (cache["ks"], k1s),
+                 (cache["vs"], v1s)), dp)
+    W = cache["k"].shape[1]
+    kd = dequantize_kv(cache["k"], cache["ks"], x.dtype)
+    vd = dequantize_kv(cache["v"], cache["vs"], x.dtype)
+    n_valid = dp.per_row(("n_valid", W), B,
+                         lambda p: torch.clamp(p + 1, max=W))
+    out = gqa_attention(q, kd, vd, _valid_mask(n_valid, W))
+    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
 def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -296,7 +364,8 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """One-token decode step over a PAGED cache.
 
     pages: one layer's view of the node-wide arena, {"k", "v"} of shape
-    (P, block_tokens, nkv', dh'); table: (B, n_b) int32 on x's device,
+    (P, block_tokens, nkv', dh') (+ {"ks", "vs"} (P, block_tokens, nkv')
+    scales when kv_bits == 8); table: (B, n_b) int32 on x's device,
     mapping logical block j of row b to its physical page; pos as for
     ``decode_attention``.  Page tails may be wider than this model's (nkv,
     dh) (the node's pool provisions the max over hosted cohorts), so the
@@ -311,9 +380,12 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``flash_decode_fused_paged`` over the pre-write pages, which writes the
     token after; ``use_kernel=False`` gathers them into the contiguous (B,
     n_b * bt, nkv, dh) view and takes the plain masked softmax (CPU tensors
-    only)."""
+    only).  With kv_bits=8 the token's quantized k/v and scales are written
+    at ``[page, off, :nkv]`` and attention dequantizes the gathered view and
+    takes the plain masked softmax on every device, as the JAX package's
+    paged ``"kv8"`` branch does."""
     if cfg.kv_bits == 8:
-        raise NotImplementedError("int8 KV cache (kv_bits=8) is not ported yet")
+        return _decode_attention_paged_kv8(p, cfg, x, pages, table, pos)
     if not use_kernel and x.is_cuda:
         raise ValueError("use_kernel=False: the plain decode attention "
                          "runs on the CPU only; CUDA tensors go through "
@@ -325,10 +397,7 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     n_b = table.shape[1]
     W = n_b * bt
     dp = kops.decode_pos(pos, x.device)
-    page = dp.derive(("page", bt), lambda p: torch.index_select(
-        table, 1, (p // bt).reshape(1).long())[:, 0].long())      # (B,)
-    off = dp.derive(("offset", bt, B),
-                    lambda p: (p % bt).reshape(1).expand(B).long())
+    page, off = _page_index(dp, table, bt, B)
     if use_kernel and kops.fusable_decode(p, cfg):
         # fused tier (K7) over the pre-write pages, then the write
         o, k1, v1 = kops.flash_decode_fused_paged(
@@ -353,26 +422,59 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
-def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, W: int,
-                          out: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                          = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Build the slot cache from prefill k/v (B, S, nkv, dh): position p
-    lands at slot p % W; only the last W positions survive.  ``out``: a
-    (k, v) cache of shape (B, W, nkv, dh) to fill in place (zeroed first),
-    for a decode loop whose cache keeps its address."""
-    B, S, nkv, dh = k.shape
+def _page_index(dp, table: torch.Tensor, bt: int, B: int):
+    """(page, offset) (B,) int64 of a decode step's write: page
+    ``table[b, pos // bt]``, offset ``pos % bt``."""
+    page = dp.derive(("page", bt), lambda p: torch.index_select(
+        table, 1, (p // bt).reshape(1).long())[:, 0].long())
+    off = dp.derive(("offset", bt, B),
+                    lambda p: (p % bt).reshape(1).expand(B).long())
+    return page, off
+
+
+def _decode_attention_paged_kv8(p: Params, cfg: ModelConfig,
+                                x: torch.Tensor,
+                                pages: Dict[str, torch.Tensor],
+                                table: torch.Tensor, pos) -> torch.Tensor:
+    """``decode_attention_paged`` over int8 pages and their scale pages."""
+    B = x.shape[0]
+    nkv, dh = cfg.n_kv_heads, cfg.d_head
+    bt = pages["k"].shape[1]
+    W = table.shape[1] * bt
+    dp = kops.decode_pos(pos, x.device)
+    page, off = _page_index(dp, table, bt, B)
+    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
+    idx = table.long()
+    views = {}
+    for name, val in zip(("k", "v"), (k1, v1)):
+        vq, vs = quantize_kv(val)
+        body = pages[name][..., :nkv, :dh]
+        scale = pages[name + "s"][..., :nkv]
+        body.index_put_((page, off), vq[:, 0])
+        scale.index_put_((page, off), vs[:, 0])
+        views[name] = dequantize_kv(body[idx].reshape(B, W, nkv, dh),
+                                    scale[idx].reshape(B, W, nkv), x.dtype)
+    n_valid = dp.per_row(("n_valid", W), B,
+                         lambda p: torch.clamp(p + 1, max=W))
+    out = gqa_attention(q, views["k"], views["v"], _valid_mask(n_valid, W))
+    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+
+
+def prefill_slots(x: torch.Tensor, W: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cache leaf of W slots from prefill values x (B, S, ...):
+    position p lands at slot p % W; only the last W positions survive, the
+    other slots are zero.  ``out``: a (B, W, ...) leaf to fill in place
+    (zeroed first), for a decode loop whose cache keeps its address."""
+    B, S = x.shape[:2]
     if out is None:
-        ck = torch.zeros((B, W, nkv, dh), dtype=k.dtype, device=k.device)
-        cv = torch.zeros((B, W, nkv, dh), dtype=v.dtype, device=v.device)
+        out = torch.zeros((B, W) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
     else:
-        ck, cv = out
-        ck.zero_()
-        cv.zero_()
+        out.zero_()
     start = max(0, S - W)
-    slots = torch.arange(start, S, device=k.device) % W
-    ck[:, slots] = k[:, start:]
-    cv[:, slots] = v[:, start:]
-    return ck, cv
+    out[:, torch.arange(start, S, device=x.device) % W] = x[:, start:]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -389,3 +491,88 @@ def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.relu(mm(x, p["w1"]))
     return mm(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k with capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(probs: torch.Tensor, K: int, C: int):
+    """The router's choice for probabilities (T, E): the top-K weights
+    (T, K) renormalised to sum to one, their expert ids (T, K), and each
+    of the T K assignments' flat expert id, slot in its expert's buffer and
+    whether it fits below the capacity C (token-major order).
+
+    The top K is the first K of a stable descending sort, so among equal
+    probabilities the lower expert id comes first, as ``jax.lax.top_k``
+    orders them (``torch.topk`` promises no order for ties).  An
+    assignment's slot counts the earlier assignments to the same expert.
+    Every size is static: the function runs inside a captured step."""
+    E = probs.shape[-1]
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_idx = gate_w[:, :K], gate_idx[:, :K]
+    gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+    flat_idx = gate_idx.reshape(-1)                             # (T*K,)
+    onehot = (flat_idx[:, None] == torch.arange(E, device=probs.device)) \
+        .to(torch.int32)                                        # (T*K, E)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos = torch.gather(pos_in_e, 1, flat_idx[:, None])[:, 0]
+    return gate_w, gate_idx, flat_idx, pos, pos < C
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              capacity_factor: float = 1.25, with_aux: bool = False):
+    """Top-k token-choice MoE with per-expert capacity (the JAX package's
+    ``moe_apply``).  x: (B, S, D).  Returns (out (B, S, D), the Switch-style
+    load-balance loss, or None unless ``with_aux``).
+
+    Dispatch: each kept (token, k) assignment writes its token row into
+    slot ``pos`` of its expert's (C, D) buffer.  The JAX package adds an
+    assignment past the capacity as zeros at slot C - 1; here it lands in
+    a spare slot C that is cut off, which leaves the same values (a kept
+    slot has one writer), with no float atomics.  The expert FFN runs on
+    the dequantized expert weights (``maybe_dequant``; the JAX package's
+    einsums, outside any kernel).  Combine: each token's K weighted expert
+    outputs are summed as a fold from k = 0, the order in which the JAX
+    package's scatter-add applies them, so the sum is the same on every
+    device and in every run."""
+    B, S, D = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    gate_logits = mm(xt, p["router"]).to(torch.float32)         # (T, E)
+    probs = torch.softmax(gate_logits, dim=-1)
+    C = max(int(math.ceil(T * K / E * capacity_factor)), 1)
+    gate_w, gate_idx, flat_idx, pos, keep = moe_route(probs, K, C)
+    aux = None
+    if with_aux:
+        me = torch.mean(probs, dim=0)
+        ce = torch.mean(F.one_hot(gate_idx[:, 0], E).to(torch.float32), dim=0)
+        aux = E * torch.sum(me * ce)
+
+    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, K) \
+        .reshape(-1)
+    buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=x.device)
+    buf.index_put_((flat_idx, torch.where(keep, pos, C).long()), xt[tok_ids])
+    buf = buf[:, :C]
+    safe_pos = torch.where(keep, pos, C - 1).long()
+
+    w1 = maybe_dequant(p["w1"])
+    if cfg.act == "silu":
+        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf,
+                                                   maybe_dequant(p["w3"]))
+    else:
+        h = F.gelu(torch.bmm(buf, w1), approximate="tanh")
+    eout = torch.bmm(h, maybe_dequant(p["w2"]))                 # (E, C, D)
+
+    gathered = eout[flat_idx, safe_pos]                         # (T*K, D)
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=x.device))
+    w = gate_w.reshape(-1)[:, None].to(gathered.dtype)
+    contrib = (gathered * w).reshape(T, K, D)
+    out = torch.zeros((T, D), dtype=xt.dtype, device=x.device)
+    for k in range(K):
+        out = out + contrib[:, k]
+    return out.reshape(B, S, D), aux

@@ -1,12 +1,17 @@
-"""Decoder-only dense transformer (port of the dense family of
-``repro.models.transformer``).
+"""Decoder-only transformer covering the dense, MoE and VLM families (port
+of ``repro.models.transformer``).
 
 Params are a dict: ``embed`` (Vp, D), ``layers`` (a list of per-layer
-dicts {"attn", "ffn", "norm1", "norm2"}; the JAX package stacks them on
-axis 0 and scans), ``final_norm`` and, without tied embeddings,
-``lm_head``.  The decode cache is a list of per-layer {"k", "v"} slot
-caches (B, W, nkv, dh), updated in place by ``decode_step``;
-``decode_step_paged`` reads and writes a paged arena instead.
+dicts {"attn", "norm1", "norm2"} and "ffn", or "moe" for a MoE model; the
+JAX package stacks them on axis 0 and scans), ``final_norm`` and, without
+tied embeddings, ``lm_head``.  GQA with an optional sliding window and
+qk-norm; the MoE FFN is top-k capacity dispatch; a VLM prepends the stub
+vision frontend's patch embeddings (``batch["patch_embeds"]``) to the text
+embeddings.  The decode cache is a list of per-layer {"k", "v"} slot
+caches (B, W, nkv, dh), W the context or the sliding window (+ {"ks",
+"vs"} (B, W, nkv) scales with kv_bits=8), updated in place by
+``decode_step``; ``decode_step_paged`` reads and writes a paged arena
+instead.
 """
 from __future__ import annotations
 
@@ -23,28 +28,24 @@ Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    if cfg.sliding_window or cfg.qk_norm:
-        raise NotImplementedError("sliding_window / qk_norm are not "
-                                  "ported yet")
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights from ``gen``, on ``gen.device``: the JAX package's
     distributions (it draws other numbers from the same seed)."""
-    _check_family(cfg)
     dt = common.torch_dtype(cfg)
     dev = gen.device
+
+    def layer():
+        p = {"attn": common.make_attn_params(cfg, gen, dt),
+             "norm1": common.make_norm_params(cfg, dt, dev),
+             "norm2": common.make_norm_params(cfg, dt, dev)}
+        if cfg.is_moe:
+            p["moe"] = common.make_moe_params(cfg, gen, dt)
+        else:
+            p["ffn"] = common.make_ffn_params(cfg, gen, dt)
+        return p
+
     params = {"embed": common.embed_init(gen, (cfg.vocab_padded(), cfg.d_model), dt)}
-    params["layers"] = [
-        {"attn": common.make_attn_params(cfg, gen, dt),
-         "norm1": common.make_norm_params(cfg, dt, dev),
-         "norm2": common.make_norm_params(cfg, dt, dev),
-         "ffn": common.make_ffn_params(cfg, gen, dt)}
-        for _ in range(cfg.n_layers)]
+    params["layers"] = [layer() for _ in range(cfg.n_layers)]
     params["final_norm"] = common.make_norm_params(cfg, dt, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(
@@ -65,70 +66,125 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return common.mm(x, params["lm_head"])
 
 
+def cache_capacity(cfg: ModelConfig, context_len: int) -> int:
+    """Slots of the decode cache: the context, or the sliding window."""
+    return min(context_len, cfg.sliding_window) if cfg.sliding_window \
+        else context_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> Cache:
-    _check_family(cfg)
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    """Zero slot caches of ``cache_capacity`` slots; with kv_bits=8, int8
+    values and scales set to one, as in the JAX package."""
+    W = cache_capacity(cfg, cache_len)
+    shape = (batch, W, cfg.n_kv_heads, cfg.d_head)
+    if cfg.kv_bits == 8:
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "ks": torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                 "vs": torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device)}
+                for _ in range(cfg.n_layers)]
     dt = common.torch_dtype(cfg)
     return [{"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
             for _ in range(cfg.n_layers)]
 
 
-def _layers(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            on_kv=None) -> torch.Tensor:
-    """The embedded ``tokens`` (B, S) through every layer, causal; returns
-    the hidden states before the final norm.  ``on_kv(k, v)`` sees each
-    layer's k/v (B, S, nkv, dh)."""
-    _check_family(cfg)
-    x = _table(params)[tokens]
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+         with_aux: bool = False):
+    """The layer's FFN, or its MoE layer: (out, aux loss or None)."""
+    if cfg.is_moe:
+        return common.moe_apply(lp["moe"], cfg, h, with_aux=with_aux)
+    return common.ffn_apply(lp["ffn"], cfg, h), None
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """The token embeddings (B, S, D); a VLM prepends the stub vision
+    frontend's patch embeddings (B, n_img, D), already projected to
+    d_model."""
+    x = _table(params)[batch["tokens"]]
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _layers(cfg: ModelConfig, params: Params, batch, on_kv=None,
+            with_aux: bool = False):
+    """The embedded inputs of ``batch`` through every layer, causal (within
+    the sliding window, if any); returns (the hidden states before the
+    final norm, the summed MoE aux loss or None).  ``on_kv(k, v)`` sees
+    each layer's k/v (B, S, nkv, dh)."""
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    aux = None
     for lp in params["layers"]:
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
-        att = common.chunked_causal_attention(q, k, v)
+        att = common.chunked_causal_attention(q, k, v, cfg.sliding_window)
         x = x + common.mm(att.reshape(B, S, cfg.n_heads * cfg.d_head),
                           lp["attn"]["wo"])
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+        out, a = _ffn(cfg, lp, h, with_aux)
+        x = x + out
+        if a is not None:
+            aux = a if aux is None else aux + a
         if on_kv is not None:
             on_kv(k, v)
-    return x
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Logits (B, S, Vp) of the whole sequence (causal, no cache)."""
-    x = _layers(cfg, params, batch["tokens"])
+    x, _ = _layers(cfg, params, batch)
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch):
-    """(mean next-token cross-entropy, {"loss", "aux_loss"}); dense models
-    have no auxiliary loss."""
+    """(next-token cross-entropy + 0.01 x the MoE aux loss, {"loss",
+    "aux_loss"}); a dense model's aux loss is zero, and a VLM's image
+    positions carry no LM loss."""
     from repro_torch.models.api import cross_entropy
-    loss = cross_entropy(forward(cfg, params, batch), batch["labels"],
-                         cfg.vocab, batch.get("loss_mask"))
-    return loss, {"loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
+    x, aux = _layers(cfg, params, batch, with_aux=True)
+    logits = _unembed(cfg, params,
+                      common.apply_norm(cfg.norm, params["final_norm"], x))
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.vlm.n_img_tokens:]
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab,
+                         batch.get("loss_mask"))
+    if aux is None:
+        aux = torch.zeros((), device=loss.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0,
             out: Cache = None):
     """Run the prompt through the stack; return (last-token logits, cache).
-    ``cache_len`` sets decode cache capacity (0 => prompt length).
-    ``out``: a cache of that capacity to fill in place and return (a
-    decode loop's, which keeps its address)."""
-    W = cache_len or batch["tokens"].shape[1]
+    ``cache_len`` sets decode cache capacity (0 => the input length; a
+    sliding window bounds it).  ``out``: a cache of that capacity to fill
+    in place and return (a decode loop's, which keeps its address).  With
+    kv_bits=8 the cache holds ``quantize_kv`` of every position's k/v and
+    their scales (zero in the slots no position fills)."""
+    S = batch["tokens"].shape[1]
+    if cfg.family == "vlm":
+        S += batch["patch_embeds"].shape[1]
+    W = cache_capacity(cfg, cache_len or S)
     cache: Cache = []
 
     def keep(k, v):
-        layer = None if out is None else out[len(cache)]
-        ck, cv = common.prefill_cache_from_kv(
-            k, v, W, None if layer is None else (layer["k"], layer["v"]))
-        cache.append({"k": ck, "v": cv})
+        layer = out[len(cache)] if out is not None else {}
+        if cfg.kv_bits == 8:
+            (kq, ks), (vq, vs) = common.quantize_kv(k), common.quantize_kv(v)
+            vals = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        else:
+            vals = {"k": k, "v": v}
+        cache.append({name: common.prefill_slots(val, W, layer.get(name))
+                      for name, val in vals.items()})
 
-    x = _layers(cfg, params, batch["tokens"], keep)
+    x, _ = _layers(cfg, params, batch, keep)
     x = common.apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
     return _unembed(cfg, params, x)[:, 0], cache
 
@@ -150,7 +206,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = x + common.decode_attention_cache(lp["attn"], cfg, h, layer_cache,
                                               dp, use_kernel)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+        x = x + _ffn(cfg, lp, h)[0]
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], cache
 
@@ -160,9 +216,10 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
                       tokens: torch.Tensor, pos, use_kernel: bool = True):
     """One decode iteration over the PAGED cache.  ``pages``: arena leaves
     stacked over layers, {"k", "v"} of shape (L, P, block_tokens, nkv',
-    dh'); layer l works on the views ``pages[name][l]``.  ``table``: (B,
-    n_b) int32 block table, shared by every layer (one page id covers all
-    L layers of a row's block).  ``pos`` as for ``decode_step``.  Updates
+    dh') (+ {"ks", "vs"} (L, P, block_tokens, nkv') with kv_bits=8);
+    layer l works on the views ``pages[name][l]``.  ``table``: (B, n_b)
+    int32 block table, shared by every layer (one page id covers all L
+    layers of a row's block).  ``pos`` as for ``decode_step``.  Updates
     ``pages`` in place and returns (logits, pages)."""
     x = _table(params)[tokens]
     dp = kops.decode_pos(pos, x.device)
@@ -172,6 +229,6 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
             lp["attn"], cfg, h, {name: leaf[l] for name, leaf in pages.items()},
             table, dp, use_kernel)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+        x = x + _ffn(cfg, lp, h)[0]
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], pages

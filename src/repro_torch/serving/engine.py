@@ -66,6 +66,7 @@ from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_loop import DeviceLoop
 from repro_torch.models.api import Model, build_model
+from repro_torch.models.common import torch_dtype
 from repro_torch.quant.ptq import QTensor, quantize_tree, with_act_bits
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
     KVArena
@@ -264,8 +265,9 @@ class ServingEngine:
 
     def decode_tier(self, bits=None) -> str:
         """The decode-attention tier ``use_kernel=True`` serving at
-        ``bits`` (engine default when None) routes to: ``"fused"`` (K6/K7)
-        or ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``."""
+        ``bits`` (engine default when None) routes to: ``"kv8"`` (int8 KV
+        cache, no decode-attention kernel), ``"fused"`` (K6/K7) or
+        ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``."""
         params = self.params_for(self.default_bits if bits is None
                                  else bits)
         return kops.decode_kernel_tier(params["layers"][0]["attn"], self.cfg)
@@ -308,10 +310,22 @@ class ServingEngine:
         host = np.concatenate([self.pad_prompts(prompts), caps[:, None]], 1)
         return params, torch.from_numpy(host), caps, nb
 
+    def _as_batch(self, tokens):
+        """Device prompt tokens as a model input batch; a VLM's batch also
+        holds zero patch embeddings (B, n_img_tokens, d_model), the stub
+        vision frontend's output, as in the JAX package."""
+        batch = {"tokens": tokens}
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (tokens.shape[0], self.cfg.vlm.n_img_tokens,
+                 self.cfg.d_model), dtype=torch_dtype(self.cfg),
+                device=self.device)
+        return batch
+
     def _prefill(self, params, tokens, out=None):
         """Prompt pass; returns (first sampled token (B,), KV cache).
         ``out``: a KV cache to fill in place."""
-        logits, cache = self.model.prefill(params, {"tokens": tokens},
+        logits, cache = self.model.prefill(params, self._as_batch(tokens),
                                            self.cache_len, out=out)
         return torch.argmax(logits[..., :self.cfg.vocab], -1), cache
 

@@ -1155,6 +1155,194 @@ def test_two_replays_of_the_same_state_are_bitwise_equal(cuda):
     assert all(torch.equal(a, b) for a, b in zip(k1, k2))
 
 
+# -- the transformer family's other members: their shapes and paths -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("D,G", [(6144, 6), (7168, 7)],
+                         ids=["internvl2", "deepseek"])
+def test_flash_decode_fused_full_width_gqa_vs_plain(cuda, D, G, act_bits):
+    """K6 and K7 at internvl2-26b's decode shape (D 6144, 48 heads of 128
+    over 8) and deepseek-coder-33b's (D 7168, 56 over 8), B = 8, W = 640:
+    clusters of 8 blocks, one per KV head (64 blocks); against their plain
+    versions in bfloat16 and float32 (whose ring takes two stages at G =
+    7), at a partial fill, a full cache and the eviction slot; K7 bitwise
+    equal to K6 through a table of 16-slot pages."""
+    nkv, dh, W, a8 = 8, 128, 640, act_bits == 8
+    assert tfd.fused_plan(D, nkv, G, dh).cluster == 8
+    x, ws = _fused_inputs(8, D, G, nkv, dh, act_bits, cuda, seed=G)
+    ck, cv, kp, vp, table = _fused_slab_and_pages(x, W, nkv, dh, 16, cuda,
+                                                  seed=D)
+    for pos in (576, 640, 647):
+        nv, ev = min(pos, W), (pos % W if pos >= W else -1)
+        cos, sin = ops._rope_rows(pos, dh, 1e4, cuda)
+        for dt in (torch.bfloat16, torch.float32):
+            xd, ckd, cvd, kpd, vpd = (t.to(dt) for t in (x, ck, cv, kp, vp))
+            got = tfd.flash_decode_fused_cuda(xd, *ws, ckd, cvd, nv, ev, cos,
+                                              sin, True, a8)
+            want = tfd.flash_decode_fused_plain(xd, *ws, ckd, cvd, nv, ev,
+                                                cos, sin, True, a8)
+            for g, w, tol in zip(got, want, _fused_tols(dt, a8, ws, cvd,
+                                                        want)):
+                torch.testing.assert_close(g, w, **tol)
+            paged = tfd.flash_decode_fused_paged_cuda(
+                xd, *ws, kpd, vpd, table, nv, ev, cos, sin, True, a8)
+            for p, g in zip(paged, got):
+                assert torch.equal(p, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 4096])
+@pytest.mark.parametrize("K,N", [(1024, 32), (6144, 8)],
+                         ids=["granite_router", "mixtral_router"])
+def test_router_shaped_matmuls_vs_plain(cuda, K, N, M, bits):
+    """The MoE routers' narrow matmuls: granite's (1024, 32) on the bf16
+    GEMV at decode and on ``qmm_tc`` at prefill (N = 32 passes the TMA's
+    N % 16), mixtral's (6144, 8) on ``qmm_skinny`` / ``qmm_tiled``;
+    against the plain version, each counted on the kernel ``route``
+    names."""
+    # weights at dense_init's scale (std 1/sqrt(K)), as a router's are, so
+    # that outputs are O(1) as BF16_TOL's float32 summation term assumes
+    rng = np.random.default_rng(M)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                         .astype(np.float32))
+    t = tptq.quantize(w, bits)
+    x, q, s = x.to(cuda), t.q.to(cuda), t.scale.reshape(-1).to(cuda)
+    xb = x.to(torch.bfloat16)
+    name = "w8a16" if bits == 8 else "w4a16"
+    ops.reset_launch_counts()
+    got = tqm.quant_matmul_cuda(xb, q, s, bits)
+    torch.testing.assert_close(got, tqm.quant_matmul_plain(xb, q, s, bits),
+                               **BF16_TOL)
+    counts = ops.launch_counts()
+    wide = N % 16 == 0
+    assert counts[name] == 1
+    assert counts[name + "_gemv"] == int(M <= 8 and wide)
+    assert counts[name + "_tc"] == int(M > 8 and wide)
+    if bits == 8:
+        xq, sx = tptq.quantize_rowwise(xb)
+        ops.reset_launch_counts()
+        got = tqm.quant_matmul_a8_cuda(xq, sx, q, s, torch.bfloat16)
+        assert torch.equal(got, tqm.quant_matmul_a8_plain(xq, sx, q, s,
+                                                          torch.bfloat16))
+        counts = ops.launch_counts()
+        assert counts["w8a8_gemv"] == int(M <= 8)
+        assert counts["w8a8_tc"] == int(M > 8 and wide)
+
+
+def _family_engine(arch, n_max=16, **cfg_kw):
+    """A bfloat16 engine of ``arch`` cut to 2 layers and vocab 512 at its
+    own widths (granite: 32 experts, top 8), B = 8."""
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_arch(arch).scaled(n_layers=2, vocab=512, **cfg_kw)
+    return ServingEngine(cfg, batch_capacity=8, s_max=32, n_max=n_max,
+                         quant_bits=8, seed=5, device="cuda")
+
+
+def _family_prompts(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 512, size=n).tolist()
+            for n in (5, 32, 9, 2, 17, 30, 1, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8, (8, 8), 4])
+def test_captured_moe_step_equals_eager_and_replays_bitwise(cuda, bits):
+    """granite's MoE layer (32 experts, top 8, static capacity, a stable
+    sort for the top k, a fold for the combine) inside the captured decode
+    step: ``generate`` (the device loop) equals ``generate_reference``
+    (eager steps) bitwise, chunked equals it, and two replays of one
+    captured step from the same state are bitwise equal."""
+    eng = _family_engine("granite-moe-1b-a400m", d_model=512, n_heads=8,
+                         n_kv_heads=4)
+    assert eng.cfg.moe.n_experts == 32 and eng.cfg.moe.top_k == 8
+    prompts, caps = _family_prompts(), [16, 3, 16, 9, 16, 1, 16, 12]
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    c = eng.generate_via_chunks(prompts, caps, k=5, quant_bits=bits)
+    np.testing.assert_array_equal(c.tokens, a.tokens)
+    runs = []
+    for _ in range(2):
+        st = eng.start_chunked(prompts, [16] * 8, quant_bits=bits)
+        st = eng.generate_chunked(st, 8)
+        out, lengths, _, t = eng.poll_chunked(st)
+        runs.append((out, st.cur.clone(), [x["v"].clone() for x in st.cache]))
+    (o1, c1, v1), (o2, c2, v2) = runs
+    np.testing.assert_array_equal(o1, o2)
+    assert torch.equal(c1, c2) and all(torch.equal(x, y)
+                                       for x, y in zip(v1, v2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8, (8, 8)])
+def test_kv8_step_as_a_graph_equals_eager(cuda, bits):
+    """qwen3 with the int8 KV cache: its decode step (quantize the token's
+    k/v, write them and their scales, dequantize, the plain masked
+    softmax; no decode-attention kernel) captured as a CUDA graph gives
+    ``generate_reference``'s tokens bitwise, and so do the paged path over
+    the arena's four leaves and the slab path with a refill."""
+    from repro_torch.serving.kv_arena import KVArena
+    eng = _family_engine("qwen3-1.7b", d_model=512, n_heads=4, n_kv_heads=2,
+                         kv_bits=8)
+    assert eng.decode_tier(bits) == "kv8"
+    prompts, caps = _family_prompts(1), [16, 3, 16, 9, 16, 1, 16, 12]
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    counts = ops.launch_counts()
+    assert counts["decode_loop"] > 0
+    assert not any(counts[k] for k in ("flash_decode", "flash_decode_paged",
+                                       "flash_decode_fused",
+                                       "flash_decode_fused_paged"))
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    arena = KVArena.for_engines(eng, block_tokens=16)
+    assert len(arena.buffers()) == 4
+    p = eng.generate_via_chunks(prompts, caps, k=5, quant_bits=bits,
+                                arena=arena)
+    np.testing.assert_array_equal(p.tokens, a.tokens)
+    assert arena.free_pages == arena.total_pages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, (8, 8), 4])
+def test_vlm_engine_on_the_card(cuda, bits):
+    """internvl2's VLM engine (256 zero patch embeddings ahead of the
+    prompt, 2 layers at d_model 1536, 12 heads of 128 over 2: G = 6):
+    ``generate == generate_reference`` and paged == slab == ``generate``,
+    on the fused tier at W8A16 and W8A8 (K6, K7) and the unfused one at
+    W4A16 (K4, K5)."""
+    from repro_torch.serving.kv_arena import KVArena
+    eng = _family_engine("internvl2-26b", d_model=1536, n_heads=12,
+                         n_kv_heads=2)
+    fused = bits in (8, (8, 8))
+    assert eng.decode_tier(bits) == ("fused" if fused else "flash")
+    prompts, caps = _family_prompts(2), [16, 3, 16, 9, 16, 1, 16, 12]
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    assert ops.launch_counts()["flash_decode_fused" if fused
+                               else "flash_decode"] > 0
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    arena = KVArena.for_engines(eng, block_tokens=16)
+    ops.reset_launch_counts()
+    p = eng.generate_via_chunks(prompts, caps, k=5, quant_bits=bits,
+                                arena=arena)
+    assert ops.launch_counts()["flash_decode_fused_paged" if fused
+                               else "flash_decode_paged"] > 0
+    np.testing.assert_array_equal(p.tokens, a.tokens)
+    s = eng.generate_via_chunks(prompts, caps, k=5, quant_bits=bits)
+    np.testing.assert_array_equal(s.tokens, a.tokens)
+
+
 # ---------------------------------------------------------------------------
 # No card needed: the wrappers refuse what the kernels do not take
 # ---------------------------------------------------------------------------

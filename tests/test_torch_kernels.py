@@ -159,8 +159,9 @@ def test_decode_tier_and_fused_gate():
     cfg = get_arch("bloom-3b")
     assert not ops.fusable_decode({}, cfg)
     assert ops.decode_kernel_tier({}, cfg) == "flash"
-    with pytest.raises(NotImplementedError):
-        ops.decode_kernel_tier({}, cfg.scaled(kv_bits=8))
+    # the int8 KV cache takes the plain dequantize-and-attend path, as in
+    # the JAX package
+    assert ops.decode_kernel_tier({}, cfg.scaled(kv_bits=8)) == "kv8"
 
 
 def test_split_plan_covers_k():
