@@ -140,6 +140,25 @@ Phases (any failure exits non-zero and prints no result):
    step eager and as one CUDA graph, and ``generate`` with the eager loop
    against the device loop; one step each of qwen3 at kv_bits=8, granite
    and internvl2 traced with ``torch.profiler`` (top 15 device ops).
+9. The recurrent, hybrid and audio families at full width and depth, one
+   after another, each engine freed before the next, zamba2-7b last (B =
+   8, s' = 512, n_max = 128, bf16): xlstm-1.3b (48 blocks, 3.65 B
+   parameters, mLSTM state 5.6 GB a cohort), whisper-tiny (4 + 4 layers,
+   1500 zero audio frames a prompt) and zamba2-7b (81 Mamba2 layers and 13
+   shared-attention sites).  Their quantized trees are dequantized at load
+   and their decode runs no kernel, as in the JAX package: on every path
+   the device loop launches and no K1-K7 counter moves.  Each: ``generate
+   == generate_reference`` at bf16 and W8A16 on the first ``generate``
+   after each capture; chunked (k = 16) == ``generate``; a row refilled
+   mid-cohort at step 16 equals the same prompt refilled into a cohort
+   with no other live row (xLSTM: and the prompt served alone); ``dftsp``
+   epochs at W8A16 and ``dftsp`` through ``ContinuousRuntime`` on the slab
+   (k = 16); prefill ms, the decode step eager and as one CUDA graph,
+   ``generate`` with the eager loop against the device loop, the idle
+   share; one step traced (top 15 device ops); the device memory peak.
+   The small-reference phase (4) also serves the three reduced at float32
+   (xlstm-1.3b at 9 layers, zamba2-7b at 13): card == CPU tokens at every
+   precision.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -214,10 +233,19 @@ ROUTER_MATMULS = [("router", 1024, 32)]
 # the new configs of the port, each reduced for the small-reference phase
 FAMILY_ARCHS = ("deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
                 "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b")
+# the recurrent, hybrid and audio families for the small-reference phase:
+# reduced, xlstm-1.3b and zamba2-7b deep enough to hold every kind of block
+# (an sLSTM block; two shared-attention sites and a tail)
+RECURRENT_SMALL = (("xlstm-1.3b", dict(n_layers=9)),
+                   ("zamba2-7b", dict(n_layers=13)), ("whisper-tiny", {}))
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, stamped with the seconds since the start."""
+    print(f"[chip_smoke {time.perf_counter() - T0:.1f} s] {msg}", flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -1474,10 +1502,15 @@ def small_reference_phase(arch="bloom-3b", n_heads=4,
         f"bits {list(paged_bits)}")
 
 
-def small_family_phase(archs=FAMILY_ARCHS):
+def small_family_phase(archs=FAMILY_ARCHS, recurrent=RECURRENT_SMALL):
     """The transformer family's other members, each at the test suite's
     reduced shape (``launch.serve.reduced``: 2 layers, at most 4 experts,
-    a window of 16) at float32, and qwen3 also at kv_bits=8.  Where no
+    a window of 16) at float32, and qwen3 also at kv_bits=8; then the
+    recurrent, hybrid and audio families (xlstm-1.3b at 9 layers: 7 mLSTM
+    + 1 sLSTM + 1; zamba2-7b at 13: two shared-attention sites; whisper-tiny
+    reduced), whose trees are dequantized at load and whose decode runs no
+    kernel: the card must give the CPU's greedy tokens at every precision
+    and move no kernel counter (tier "none").  Where no
     int8 rounding of a computed float sits between the two devices (bits
     0, 8 and 4 over a float KV cache), the card (kernels) must give the
     CPU's (plain versions) greedy tokens, slab and, where
@@ -1500,7 +1533,9 @@ def small_family_phase(archs=FAMILY_ARCHS):
     import numpy as np
     kw = dict(batch_capacity=4, s_max=32, n_max=16, quant_bits=8,
               use_kernel=True)
-    cases = [(a, 16) for a in archs] + [("qwen3-1.7b", 8)]
+    cases = [(a, 16, {}) for a in archs] + [("qwen3-1.7b", 8, {})] \
+        + [(a, 16, kw_) for a, kw_ in recurrent]
+    kernel_counters = [c for c in ops.launch_counts() if c != "decode_loop"]
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, 512, size=n).tolist() for n in (7, 32, 19, 3)]
     caps = [16, 9, 16, 4]
@@ -1510,8 +1545,9 @@ def small_family_phase(archs=FAMILY_ARCHS):
             and np.array_equal(a.lengths, b.lengths)
 
     out = {}
-    for arch, kv_bits in cases:
-        cfg = reduced(get_arch(arch)).scaled(dtype="float32", kv_bits=kv_bits)
+    for arch, kv_bits, over in cases:
+        cfg = reduced(get_arch(arch)).scaled(dtype="float32", kv_bits=kv_bits,
+                                             **over)
         cpu = ServingEngine(cfg, device="cpu", seed=6, **kw)
         gpu = ServingEngine(cfg, params=bridge.to_device(cpu._raw_params,
                                                          "cuda"),
@@ -1523,18 +1559,25 @@ def small_family_phase(archs=FAMILY_ARCHS):
             tier = rec["tiers"][str(bits)] = gpu.decode_tier(bits)
             check(tier == cpu.decode_tier(bits), f"reduced {arch}: tiers "
                   f"differ between the card and the CPU")
-            exact = kv_bits == 16 and bits != (8, 8)
+            # the recurrent families' W8A8 tree is their dequantized W8A16
+            # one: no int8 rounding of activations between the devices
+            exact = kv_bits == 16 and (bits != (8, 8) or tier == "none")
             ops.reset_launch_counts()
             a = gpu.generate(prompts, caps, quant_bits=bits)
             counts = ops.launch_counts()
             slab = {"fused": "flash_decode_fused", "flash": "flash_decode",
-                    "kv8": None}[tier]
+                    "kv8": None, "none": None}[tier]
             check(slab is None or counts[slab] > 0,
                   f"reduced {arch} at bits={bits}: {slab} never launched")
             check(slab is not None or not any(counts[c] for c in (
                 "flash_decode", "flash_decode_paged", "flash_decode_fused",
                 "flash_decode_fused_paged")),
                   f"reduced {arch} kv8: a decode-attention kernel launched")
+            check(tier != "none" or (not any(counts[c] for c in
+                                             kernel_counters)
+                                     and counts["decode_loop"] > 0),
+                  f"reduced {arch} at bits={bits}: a kernel launched on a "
+                  f"path that has none, or no device loop ({counts})")
             b = cpu.generate(prompts, caps, quant_bits=bits)
             rec["rows_equal_to_cpu"][str(bits)] = int(
                 (a.tokens == b.tokens).all(1).sum())
@@ -1562,7 +1605,9 @@ def small_family_phase(archs=FAMILY_ARCHS):
         f"card == CPU tokens at bits 0, 8 and 4 over a float KV cache, "
         f"slab and paged where paged-capable; at W8A8 and with the int8 KV "
         f"cache generate == generate_reference and paged == slab on the "
-        f"card, rows equal to the CPU's reported: {json.dumps(out)}")
+        f"card, rows equal to the CPU's reported; xlstm-1.3b, zamba2-7b and "
+        f"whisper-tiny card == CPU tokens at every precision, no kernel "
+        f"launched: {json.dumps(out)}")
     return out
 
 
@@ -2663,6 +2708,171 @@ def internvl2_phase(cfg, n_epochs: int = 2):
                 memory_peak_bytes=peak)
 
 
+def _drain(engine, st, k: int):
+    """Segments of ``k`` steps until no row of the cohort can emit: the
+    final (out, lengths)."""
+    while True:
+        st = engine.generate_chunked(st, k)
+        out, lengths, done, t = engine.poll_chunked(st)
+        if engine.exhausted(lengths, done, st.caps_host, t):
+            return out, lengths
+
+
+def refill_phase(engine, prompts, bits=8, k: int = 16, cap: int = 40):
+    """A mid-cohort refill through the device loop, held bitwise.  Row 1
+    (cap 5) stops in the first segment of ``k`` steps; a new prompt is
+    refilled into its slot at the cohort's step t = k and the cohort is
+    driven to its end.  The refilled row must equal the same prompt
+    refilled at the same step into a cohort whose only other live row had
+    cap k (its rows do not reach each other); and, for a recurrent state
+    (xLSTM, no attention slots), the same prompt served alone by
+    ``generate``, as the JAX package's
+    ``test_refill_recurrent_family_matches_solo_decode`` holds.  (Zamba2's
+    and Whisper's refilled rows attend over the zero K/V of the slots
+    between their prompt and the cohort's position, and decode at
+    positions k later than alone, in the JAX package as here.)"""
+    import numpy as np
+    B, n_max = engine.batch_capacity, engine.n_max
+    new = prompts[2][: engine.s_max // 2][::-1]
+    caps = [n_max] * B
+    caps[1] = 5
+    rows = {}
+    for label, ps, cs in (("cohort", prompts, caps),
+                          ("alone", [prompts[0]], [k])):
+        st = engine.start_chunked(ps, cs, quant_bits=bits)
+        st = engine.generate_chunked(st, k)
+        _, lengths, _, t = engine.poll_chunked(st)
+        check(t == k and (label == "alone" or lengths[1] == 5),
+              f"{engine.cfg.arch_id} refill ({label}): t = {t}, lengths "
+              f"{lengths.tolist()} after the first segment")
+        st = engine.refill_chunked(st, [1], [new], [cap], t_now=t)
+        out, lengths = _drain(engine, st, k)
+        rows[label] = out[1, :lengths[1]]
+    check(np.array_equal(rows["cohort"], rows["alone"]),
+          f"{engine.cfg.arch_id}: the refilled row differs between a full "
+          f"cohort and one with no other live row")
+    res = dict(t_now=k, cap=cap, refilled_len=int(len(rows["cohort"])))
+    if engine.cfg.family == "ssm":
+        solo = engine.generate([new], [cap], quant_bits=bits)
+        check(np.array_equal(rows["cohort"],
+                             solo.tokens[0, :solo.lengths[0]]),
+              f"{engine.cfg.arch_id}: the refilled row != the same prompt "
+              f"served alone")
+        res["equals_solo_generate"] = True
+    log(f"refill: {engine.cfg.arch_id} row refilled at step {k} "
+        f"({res['refilled_len']} tokens) == the same prompt refilled into a "
+        f"cohort with no other live row"
+        + (" == served alone by generate" if "equals_solo_generate" in res
+           else "") + ", bitwise")
+    return res
+
+
+def continuous_slab_phase(engine, idle, label, rate: float = 10.0,
+                          n_epochs: int = 2, k: int = 16):
+    """``dftsp`` through ``ContinuousRuntime`` + ``EngineContinuousExecutor``
+    on the slab (no arena: these families are not paged-capable), chunk
+    k, counted on its own: the device loop must launch and no counter of
+    ``idle``; requests are conserved."""
+    from repro_torch.core.environment import paper_env
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.runtime import (ContinuousRuntime,
+                                             EngineContinuousExecutor)
+    runtime = ContinuousRuntime(
+        paper_env(engine.cfg.arch_id, "W8A16"), get_policy("dftsp"),
+        EngineContinuousExecutor(engine, seed=0), k=k)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = runtime.run(rate=rate, n_epochs=n_epochs, seed=0, warmup_epochs=0)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    log(f"{label}: dftsp on {engine.cfg.arch_id} over the slab, k={k}, "
+        f"{n_epochs} epochs at rate {rate}: served={m.served} dropped="
+        f"{m.dropped} shed={m.shed} tokens={m.generated_tokens} mid-epoch "
+        f"admissions={m.admitted_mid_epoch} methods={m.served_by_method} in "
+        f"{run_ms:.0f} ms; launches {counts}")
+    check(m.served > 0 and m.generated_tokens > 0,
+          f"{label} served nothing")
+    check(counts["decode_loop"] > 0, f"{label}: no device loop launched")
+    for c in idle:
+        check(counts[c] == 0, f"{label}: {c} launched {counts[c]} times on "
+              f"a path that has no kernel")
+    check(m.arrived == m.served + m.dropped + m.shed
+          + len(m.final_queue_rids) + len(m.in_flight_rids),
+          f"{label}: requests not conserved")
+    return dict(served=m.served, dropped=m.dropped, shed=m.shed,
+                tokens=m.generated_tokens,
+                admitted_mid_epoch=m.admitted_mid_epoch,
+                methods=m.served_by_method, run_ms=run_ms, launches=counts)
+
+
+def recurrent_phase(cfg, n_epochs: int = 2):
+    """xlstm-1.3b, zamba2-7b or whisper-tiny at full width and depth (B =
+    8, s' = 512, n_max = 128, bf16, random weights from a seed), once every
+    earlier engine is freed.  Their quantized trees are dequantized at
+    load and their decode runs no kernel, as in the JAX package: no K1-K7
+    counter may move on any of their paths.  ``generate ==
+    generate_reference`` at bf16 and W8A16, each on the first ``generate``
+    after its loop's capture (before anything else runs at that
+    precision); chunked (k = 16) == ``generate``; a mid-cohort refill
+    (``refill_phase``); ``dftsp`` epochs at W8A16; ``dftsp`` through
+    ``ContinuousRuntime`` on the slab (k = 16); the decode step eager and
+    as one CUDA graph, ``generate`` with the eager loop against the device
+    loop; one step traced; the device memory peak."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    tag = cfg.arch_id.split("-")[0]
+    torch.cuda.reset_peak_memory_stats()
+    prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
+    engine = _family_engine(cfg, "")
+    check(engine.decode_tier(8) == "none" and not engine.paged_capable,
+          f"{cfg.arch_id}: expected no kernel tier and no paged path")
+    kernels = tuple(c for c in ops.launch_counts() if c != "decode_loop")
+    ops.reset_launch_counts()
+    first = {}
+    for bits in (0, 8):
+        n0 = len(engine.captures)
+        (_, ms) = _timed(lambda: _check_generate(engine, prompts, caps, bits))
+        check(len(engine.captures) == n0 + 1,
+              f"{cfg.arch_id} bits={bits}: the checked generate was not the "
+              f"first after a capture")
+        first[str(bits)] = ms
+    a = engine.generate(prompts, caps)
+    c, chunked_ms = _timed(lambda: engine.generate_via_chunks(prompts, caps,
+                                                              k=16))
+    check(np.array_equal(c.tokens, a.tokens)
+          and np.array_equal(c.lengths, a.lengths),
+          f"{cfg.arch_id}: chunked decode (k=16) != generate")
+    refill = refill_phase(engine, prompts)
+    counts = ops.launch_counts()
+    check(counts["decode_loop"] > 0 and not any(counts[k] for k in kernels),
+          f"{cfg.arch_id}: a kernel launched, or no device loop ({counts})")
+    log(f"slice: {cfg.arch_id}: generate == generate_reference at bf16 and "
+        f"W8A16, each the first generate after its capture (check ms "
+        f"{first}); chunked (k=16, {chunked_ms:.0f} ms) == generate; no "
+        f"kernel launched ({counts})")
+    runs = {f"{tag}_dftsp_w8a16": epoch_path(
+        engine, f"{tag}_dftsp_w8a16", "W8A16", "dftsp", ("decode_loop",),
+        kernels, 10.0, n_epochs)}
+    runs[f"{tag}_continuous_slab"] = continuous_slab_phase(
+        engine, kernels, f"{tag}_continuous_slab")
+    timings = {"W8A16": decode_step_timing(engine, prompts, 8, "W8A16",
+                                           loop=True)}
+    check(not timings["W8A16"]["kernel_calls_per_step"],
+          f"{cfg.arch_id}: a decode step launched kernels "
+          f"{timings['W8A16']['kernel_calls_per_step']}")
+    trace = trace_steps(engine, prompts, 8)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"slice: {cfg.arch_id}: device memory peak {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    return dict(runs=runs, timings=timings, refill=refill,
+                first_generate_check_ms=first, chunked_ms=chunked_ms,
+                trace=trace, captures=engine.captures,
+                memory_peak_bytes=peak)
+
+
 def kept_tables(engine):
     """The dequantized embedding tables the engine keeps, in bytes per
     precision and counted once per storage: W8A16 and W8A8 quantize the
@@ -2787,7 +2997,17 @@ def main() -> int:
                  granite_phase),
                 ("internvl2-26b", dict(n_layers=48, d_model=6144, n_heads=48,
                                        n_kv_heads=8, d_head=128,
-                                       vocab=92553), internvl2_phase)):
+                                       vocab=92553), internvl2_phase),
+                ("xlstm-1.3b", dict(family="ssm", n_layers=48, d_model=2048,
+                                    n_heads=4, vocab=50304),
+                 recurrent_phase),
+                ("whisper-tiny", dict(family="audio", n_layers=4,
+                                      d_model=384, n_heads=6, vocab=51865),
+                 recurrent_phase),
+                ("zamba2-7b", dict(family="hybrid", n_layers=81,
+                                   d_model=3584, n_heads=32, n_kv_heads=32,
+                                   d_head=112, vocab=32000),
+                 recurrent_phase)):
             c = get_arch(arch)
             check(c.dtype == "bfloat16" and all(
                 getattr(c, k) == v for k, v in want.items()),

@@ -189,11 +189,14 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
 
 _ARCH_REGISTRY: Dict[str, ModelConfig] = {}
 # the configs this package carries: the paper's own models, olmo-1b (the
-# dense family's nonparam_ln + silu variant) and the transformer family's
-# other members (GQA, qk-norm, sliding window, MoE, VLM)
+# dense family's nonparam_ln + silu variant), the transformer family's
+# other members (GQA, qk-norm, sliding window, MoE, VLM) and the recurrent,
+# hybrid and audio families (xLSTM, Zamba2, Whisper): all 13 of the JAX
+# package's
 _ARCHS = ("bloom-3b", "bloom-7b1", "opt-13b", "olmo-1b",
           "deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
-          "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b")
+          "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b",
+          "xlstm-1.3b", "zamba2-7b", "whisper-tiny")
 _CONFIG_MODULES = [a.replace("-", "_").replace(".", "_") for a in _ARCHS]
 
 

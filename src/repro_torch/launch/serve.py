@@ -6,11 +6,12 @@ P1 constraints -> batched prefill + decode on the model, on a CUDA device
 by default, with decode attention through the ``flash_decode`` kernel.
 Reduced configs also run on the CPU with ``--device cpu``, where the
 kernels' plain versions stand in.  ``--arch`` takes every config the port
-carries (``config._ARCHS``: dense, MoE and VLM); ``--reduced`` cuts one to
-the reduced shape the test suite uses for it (``tests/conftest.py``
-``REDUCTIONS`` and ``reduced_cfg``: 2 layers, d_model <= 256, at most 4
-experts, a sliding window of 16), where the JAX launcher applies one
-shape to every arch.  The JAX launcher's ``--tpu-env`` is left out: the
+carries (``config._ARCHS``: all 13, dense, MoE, VLM, xLSTM, Zamba2 and
+Whisper); ``--reduced`` cuts one to the reduced shape the test suite uses
+for it (``tests/conftest.py`` ``REDUCTIONS`` and ``reduced_cfg``: 2 layers
+(Zamba2 4), d_model <= 256, at most 4 experts, a sliding window of 16,
+Whisper's 2 encoder layers over 32 frames), where the JAX launcher applies
+one shape to every arch.  The JAX launcher's ``--tpu-env`` is left out: the
 port has no cost model of its own device yet.
 
 Usage:
@@ -22,7 +23,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from repro_torch.config import ModelConfig, MoEConfig, get_arch
+from repro_torch.config import EncDecConfig, ModelConfig, MoEConfig, \
+    get_arch
 from repro_torch.core.environment import paper_env
 from repro_torch.core.policy import get_policy
 from repro_torch.serving.engine import ServingEngine
@@ -50,16 +52,26 @@ REDUCTIONS = {
                                  n_kv_heads=2, d_ff=64, vocab=512),
     "internvl2-26b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
                           d_ff=256, vocab=512),
+    "xlstm-1.3b": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                       vocab=512),
+    "zamba2-7b": dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=4,
+                      d_ff=256, vocab=512),
+    "whisper-tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                         d_ff=256, vocab=512),
 }
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """``cfg`` at the test suite's reduced shape: its ``REDUCTIONS``
-    entry, at most 4 experts (top-k at most 2), a window of 16."""
+    entry, at most 4 experts (top-k at most 2), 2 encoder layers over 32
+    audio frames, a window of 16."""
     cfg = cfg.scaled(**REDUCTIONS[cfg.arch_id])
     if cfg.is_moe and cfg.moe.n_experts > 4:
         cfg = dataclasses.replace(
             cfg, moe=MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2)))
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(
+            cfg, encdec=EncDecConfig(n_enc_layers=2, n_audio_frames=32))
     if cfg.sliding_window:
         cfg = dataclasses.replace(cfg, sliding_window=16)
     return cfg

@@ -1,8 +1,15 @@
-"""Model API (port of ``repro.models.api``: the transformer family, dense,
-MoE and VLM; the recurrent, hybrid and audio families are not ported yet).
+"""Model API (port of ``repro.models.api``) for all six families: the
+transformer family (dense, MoE, VLM: ``models.transformer``), the
+recurrent family (``ssm``: xLSTM, ``models.xlstm``), the hybrid
+(``models.zamba``: Mamba2 + a shared attention block) and the audio
+encoder-decoder (``models.whisper``).
 
 ``build_model`` returns a :class:`Model` whose members are plain
-functions over a params dict, as in the JAX package.
+functions over a params dict, as in the JAX package.  Every family's cache
+is a list of per-layer dicts whose leaves hold the batch on axis 0, so the
+serving engine splices refilled rows the same way for all of them.  Only
+the transformer family has a paged decode step and takes ``use_kernel``;
+the others decode with no kernel, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -48,18 +55,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
-            f"are)")
-    from repro_torch.models import transformer
+    from repro_torch.models import transformer, whisper, xlstm, zamba
+    mod = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": xlstm, "hybrid": zamba, "audio": whisper}[cfg.family]
+    paged = getattr(mod, "decode_step_paged", None)
     return Model(
         cfg=cfg,
-        init=functools.partial(transformer.init_params, cfg),
-        prefill=functools.partial(transformer.prefill, cfg),
-        decode_step=functools.partial(transformer.decode_step, cfg),
-        init_cache=functools.partial(transformer.init_cache, cfg),
-        decode_step_paged=functools.partial(transformer.decode_step_paged,
-                                            cfg),
-        loss_fn=functools.partial(transformer.loss_fn, cfg),
+        init=functools.partial(mod.init_params, cfg),
+        prefill=functools.partial(mod.prefill, cfg),
+        decode_step=functools.partial(mod.decode_step, cfg),
+        init_cache=functools.partial(mod.init_cache, cfg),
+        decode_step_paged=functools.partial(paged, cfg) if paged else None,
+        loss_fn=functools.partial(mod.loss_fn, cfg),
     )

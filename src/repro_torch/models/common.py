@@ -1,7 +1,8 @@
-"""Shared building blocks of the transformer family (port of
+"""Shared building blocks of the model families (port of
 ``repro.models.common``): norms, qk-norm, rotary embeddings, GQA attention
-(prefill, full or sliding-window, and decode over a slot cache or a paged
-arena, float or int8 KV), FFN and the top-k capacity-dispatch MoE layer.
+(prefill, causal, sliding-window or bidirectional, cross-attention, and
+decode over a slot cache or a paged arena, float or int8 KV), FFN and the
+top-k capacity-dispatch MoE layer.
 
 Functions take params explicitly, as in the JAX package, with tensors in
 the JAX package's layouts.  Prefill attention is plain matmul/softmax (it
@@ -15,7 +16,9 @@ package does (its ``"kv8"`` tier has no kernel).  The MoE experts' einsums
 run on the dequantized expert weights, outside any kernel, as in the JAX
 package; the router goes through ``mm``.  Cache writes update the cache
 tensors in place (the JAX package returns new arrays): a decode step then
-costs no cache copy.
+costs no cache copy.  The recurrent, hybrid and audio families take
+``decode_attention_plain`` on every device: the path the JAX package
+serves them on, with no kernel.
 """
 from __future__ import annotations
 
@@ -240,6 +243,44 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, window: int = 0,
+                    bidirectional: bool = False,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention with its output projection (no
+    residual add): causal (within ``window``, if any) or, for Whisper's
+    encoder, bidirectional over every position.  x: (B, S, D) -> (B, S,
+    D)."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, cfg, x, positions, use_rope)
+    if bidirectional:
+        out = gqa_attention(q, k, v, None)
+    else:
+        out = chunked_causal_attention(q, k, v, window)
+    return mm(out.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"])
+
+
+def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values (B, F, nkv, dh) of encoder states
+    enc (B, F, D), no rope (Whisper's decoder computes them once, at
+    prefill)."""
+    B, F_, _ = enc.shape
+    k = mm(enc, p["wk"]).reshape(B, F_, cfg.n_kv_heads, cfg.d_head)
+    v = mm(enc, p["wv"]).reshape(B, F_, cfg.n_kv_heads, cfg.d_head)
+    return k, v
+
+
+def cross_attend(p: Params, cfg: ModelConfig, h: torch.Tensor,
+                 xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """Queries h (B, S, D) over every encoder position's ``cross_kv``
+    (unmasked), through the output projection: (B, S, D)."""
+    B, S, _ = h.shape
+    q = mm(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    out = gqa_attention(q, xk, xv, None)
+    return mm(out.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # Decode attention over a slot cache
 # ---------------------------------------------------------------------------
@@ -294,22 +335,26 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
                      use_rope: bool = True, use_kernel: bool = True
                      ) -> torch.Tensor:
-    """One-token decode step.  x: (B, 1, D); pos: the current position, a
-    host int, an int32 0-d tensor on x's device or a ``kops.DecodePos``
-    (all three take the same tensor code, so they give the same bits).
-    Writes the token into the cache in place; returns the attention output
-    (B, 1, D).  With ``use_kernel``, int8 projections that
-    ``kops.fusable_decode`` admits take the fused tier
+    """One-token decode step of the transformer family.  x: (B, 1, D);
+    pos: the current position, a host int, an int32 0-d tensor on x's
+    device or a ``kops.DecodePos`` (all three take the same tensor code, so
+    they give the same bits).  Writes the token into the cache in place;
+    returns the attention output (B, 1, D).  With ``use_kernel``, int8
+    projections that ``kops.fusable_decode`` admits take the fused tier
     (``flash_decode_fused``), others ``flash_decode``.
-    ``use_kernel=False`` takes the plain masked softmax, which serves CPU
-    tensors only: on a CUDA tensor decode attention is a kernel."""
-    if not use_kernel and x.is_cuda:
-        raise ValueError("use_kernel=False: the plain decode attention "
-                         "runs on the CPU only; CUDA tensors go through "
-                         "the flash_decode kernel")
+    ``use_kernel=False`` takes ``decode_attention_plain``, which serves
+    this family on CPU tensors only: on a CUDA tensor its decode attention
+    is a kernel."""
+    if not use_kernel:
+        if x.is_cuda:
+            raise ValueError("use_kernel=False: the plain decode attention "
+                             "runs on the CPU only; CUDA tensors go through "
+                             "the flash_decode kernel")
+        return decode_attention_plain(p, cfg, x, cache_k, cache_v, pos,
+                                      use_rope)
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
-    if use_kernel and kops.fusable_decode(p, cfg):
+    if kops.fusable_decode(p, cfg):
         # fused tier (K6): projections, rope, attention over the pre-write
         # cache plus the current token, and wo in one call; then the write
         o, k1, v1 = kops.flash_decode_fused(
@@ -322,10 +367,28 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
-    if use_kernel:
-        out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid)[:, None]
-    else:
-        out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W))
+    out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid)[:, None]
+    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+
+
+def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           pos, use_rope: bool = True) -> torch.Tensor:
+    """One-token decode attention with no kernel, on every device: the
+    projections, rope, the write at slot pos % W and the masked softmax
+    over the slots below min(pos + 1, W).  It is the path the JAX package
+    serves the recurrent, hybrid and audio families on (Zamba2's shared
+    attention, Whisper's self-attention: its engine refuses ``use_kernel``
+    for them); the transformer family reaches it only on CPU tensors,
+    through ``decode_attention(use_kernel=False)``."""
+    B = x.shape[0]
+    dp = kops.decode_pos(pos, x.device)
+    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
+    cache_write(((cache_k, k1), (cache_v, v1)), dp)
+    W = cache_k.shape[1]
+    n_valid = dp.per_row(("n_valid", W), B,
+                         lambda p: torch.clamp(p + 1, max=W))
+    out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W))
     return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 

@@ -48,9 +48,22 @@ precision and ``generate(..., quant_bits=...)`` serves one batch at the
 precision the scheduler decided.  Each precision is quantized once from
 the full-precision weights and cached (``params_for``).  A precision is an
 int (weight bits) or a ``(weight_bits, act_bits)`` pair; ``(8, 8)`` is
-W8A8.  Quantized trees keep their QTensor leaves on every device: on a
-CUDA device they run through the hand-written kernels, on the CPU through
-the kernels' plain versions.
+W8A8.  The transformer family's quantized trees keep their QTensor leaves
+on every device: on a CUDA device they run through the hand-written
+kernels, on the CPU through the kernels' plain versions.  The recurrent,
+hybrid and audio families (xLSTM, Zamba2, Whisper) serve their quantized
+trees dequantized at load, on every device, as the JAX package does (their
+matmuls do not route through ``common.mm``'s kernels there either), and
+decode with no kernel: ``use_kernel`` does not apply to them (the JAX
+package's engine refuses it for them).
+
+A step that is not live changes no cache leaf.  The step itself writes
+the cache whether live or not (a recurrent state has no slot that no live
+row reads, so a dead step would advance it), so the loops keep dead steps
+from the cache: the device loop tests its condition before every
+iteration and runs none; the eager loop, which reads no device value,
+puts every leaf back from a copy where a step was dead; the warm-up step
+before a capture puts every leaf back from a copy.
 """
 from __future__ import annotations
 
@@ -67,7 +80,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_loop import DeviceLoop
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.common import torch_dtype
-from repro_torch.quant.ptq import QTensor, quantize_tree, with_act_bits
+from repro_torch.quant.ptq import QTensor, dequantize_tree, quantize_tree, \
+    with_act_bits
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
     KVArena
 
@@ -194,13 +208,19 @@ class ServingEngine:
         self.s_max = s_max
         self.n_max = n_max
         self.eos_id = eos_id
-        # decode attention through flash_decode; the plain masked softmax
-        # (use_kernel=False) serves the CPU only
-        if not use_kernel and self.device.type == "cuda":
+        # the transformer family's decode attention through flash_decode;
+        # the plain masked softmax (use_kernel=False) serves the CPU only.
+        # The other families decode with no kernel: the flag does not
+        # apply to them
+        self.transformer = cfg.family in ("dense", "moe", "vlm")
+        if not use_kernel and self.device.type == "cuda" \
+                and self.transformer:
             raise ValueError("use_kernel=False runs on the CPU only; on "
                              "CUDA decode attention is the flash_decode "
                              "kernel")
         self.use_kernel = bool(use_kernel)
+        self._decode_kw = {"use_kernel": self.use_kernel} \
+            if self.transformer else {}
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
@@ -236,13 +256,17 @@ class ServingEngine:
     def params_for(self, bits):
         """Weights at ``bits`` precision (int or (w, a) pair), quantized
         once and cached so the scheduler can swap the served method every
-        epoch."""
+        epoch.  The recurrent, hybrid and audio families' trees are
+        dequantized at load (fake-quant weights in the model dtype, as in
+        the JAX package); their W8A8 tree is the W8A16 one."""
         bits = self._canon_bits(bits)
         if bits not in self._params_cache:
             if bits == 0:
                 p = self._raw_params
             elif isinstance(bits, int):
                 p = quantize_tree(self._raw_params, bits)
+                if not self.transformer:
+                    p = dequantize_tree(p)
             else:
                 # int8 activations quantize the weights as fp ones do: the
                 # fp-activation tree's q, scales and kept embedding table,
@@ -267,7 +291,10 @@ class ServingEngine:
         """The decode-attention tier ``use_kernel=True`` serving at
         ``bits`` (engine default when None) routes to: ``"kv8"`` (int8 KV
         cache, no decode-attention kernel), ``"fused"`` (K6/K7) or
-        ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``."""
+        ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``; for
+        the recurrent, hybrid and audio families ``"none"`` (no kernel)."""
+        if not self.transformer:
+            return "none"
         params = self.params_for(self.default_bits if bits is None
                                  else bits)
         return kops.decode_kernel_tier(params["layers"][0]["attn"], self.cfg)
@@ -313,13 +340,19 @@ class ServingEngine:
     def _as_batch(self, tokens):
         """Device prompt tokens as a model input batch; a VLM's batch also
         holds zero patch embeddings (B, n_img_tokens, d_model), the stub
-        vision frontend's output, as in the JAX package."""
+        vision frontend's output, and an audio model's zero frame
+        embeddings (B, n_audio_frames, d_model), the stub feature
+        extractor's, as in the JAX package."""
         batch = {"tokens": tokens}
-        if self.cfg.family == "vlm":
-            batch["patch_embeds"] = torch.zeros(
-                (tokens.shape[0], self.cfg.vlm.n_img_tokens,
-                 self.cfg.d_model), dtype=torch_dtype(self.cfg),
-                device=self.device)
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            name, n = "patch_embeds", cfg.vlm.n_img_tokens
+        elif cfg.family == "audio":
+            name, n = "audio_embeds", cfg.encdec.n_audio_frames
+        else:
+            return batch
+        batch[name] = torch.zeros((tokens.shape[0], n, cfg.d_model),
+                                  dtype=torch_dtype(cfg), device=self.device)
         return batch
 
     def _prefill(self, params, tokens, out=None):
@@ -331,8 +364,7 @@ class ServingEngine:
 
     def _decode(self, params, cache, cur, t):
         logits, cache = self.model.decode_step(
-            params, cache, cur[:, None], self.s_max + t,
-            use_kernel=self.use_kernel)
+            params, cache, cur[:, None], self.s_max + t, **self._decode_kw)
         return torch.argmax(logits[..., :self.cfg.vocab], -1), cache
 
     # -- the decode loop -----------------------------------------------------
@@ -367,14 +399,13 @@ class ServingEngine:
         rows on EOS and caps, feeds the emitted tokens through
         ``model_step(tokens, pos)`` at position ``s_max + t_dev`` and
         advances ``t_dev``.  A step that is not live leaves cur, out,
-        lengths, done and ``t_dev`` as they were; its model call writes the
-        cache at a slot that no live row reads before writing it again
-        (the position is held below ``s_max + n_max``)."""
+        lengths, done and ``t_dev`` as they were, but its model call still
+        writes the cache (the position is held below ``s_max + n_max``):
+        the loops put that back (``_advance_eager``, ``_warm_up``)."""
         cur, out, lengths, done = state.cur, state.out, state.lengths, \
             state.done
-        alive = (~done) & (lengths < state.caps)
-        live = alive.any() & (state.t_dev < state.t_end)
-        alive &= live
+        live = self._live(state)
+        alive = (~done) & (lengths < state.caps) & live
         idx = torch.clamp(lengths, max=self.n_max - 1)[:, None]
         fed = torch.where(lengths < state.n_forced,
                           torch.gather(state.forced, 1, idx)[:, 0]
@@ -387,12 +418,19 @@ class ServingEngine:
         torch.where(live, model_step(fed[:, None], pos), cur, out=cur)
         state.t_dev += live
 
+    @staticmethod
+    def _live(state) -> torch.Tensor:
+        """Whether ``state``'s loop is live, a 0-d bool tensor: some row
+        can emit and ``t_dev < t_end``."""
+        alive = (~state.done) & (state.lengths < state.caps)
+        return alive.any() & (state.t_dev < state.t_end)
+
     def _model_step(self, state):
         """``(tokens, pos) -> next tokens`` of ``state`` at its precision:
         ``decode_step`` on its slab cache, or ``decode_step_paged`` on its
         arena's buffers through its block table's device copy."""
         params = self.params_for(state.bits)
-        kw = dict(use_kernel=self.use_kernel)
+        kw = self._decode_kw
         if isinstance(state, PagedDecodeState):
             pages, table = state.arena.buffers(), state.table.device
 
@@ -410,10 +448,51 @@ class ServingEngine:
 
     def _advance_eager(self, state, n_steps: int) -> None:
         """The eager loop: ``n_steps`` steps of ``state``, one ATen op
-        after another (the CPU's loop)."""
+        after another (the CPU's loop).  It reads no device value, so it
+        runs on past the exit: each step's cache leaves are copied first
+        and put back where the step is not live."""
         step = self._model_step(state)
+        leaves = self._cache_leaves(state)
+        saved = [torch.empty_like(leaf) for leaf in leaves]
         for _ in range(n_steps):
+            live = self._live(state)
+            for old, leaf in zip(saved, leaves):
+                old.copy_(leaf)
             self._step(state, step)
+            for leaf, old in zip(leaves, saved):
+                torch.where(live, leaf, old, out=leaf)
+
+    @staticmethod
+    def _cache_leaves(state) -> list:
+        """Every cache tensor a step of ``state`` writes: its slab cache's
+        leaves, or its arena's buffers."""
+        if isinstance(state, PagedDecodeState):
+            return list(state.arena.buffers().values())
+        return [leaf for layer in state.cache for leaf in layer.values()]
+
+    def _warm_up(self, state, step) -> None:
+        """Run one step of ``state`` with its loop dead (``t_end = t_dev``:
+        it emits nothing and moves no counter), on a side stream on CUDA,
+        so that every kernel's library is loaded before a capture; then
+        put back every cache leaf it wrote from a copy taken before (one
+        cohort's cache, or the arena, held for the step; made and freed on
+        the current stream)."""
+        bound = state.t_end.clone()
+        state.t_end.copy_(state.t_dev)
+        leaves = self._cache_leaves(state)
+        saved = [leaf.clone() for leaf in leaves]
+        if self.device.type == "cuda":
+            here = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                self._step(state, step)
+            here.wait_stream(side)
+        else:
+            self._step(state, step)
+        for leaf, old in zip(leaves, saved):
+            leaf.copy_(old)
+        state.t_end.copy_(bound)
 
     def _advance(self, state, n_steps: int) -> None:
         """Run ``state``'s loop: on CUDA, one launch of its device loop at
@@ -434,21 +513,14 @@ class ServingEngine:
     def _capture(self, state) -> DeviceLoop:
         """Capture one step of ``state`` at its precision as a CUDA graph
         in the engine's graph pool and wrap it in a device loop.  The step
-        is first run once on a side stream with the loop dead (``t_end =
-        t_dev``: it emits nothing and moves no counter), so that every
-        kernel's library is loaded before the capture; the capture itself
-        launches nothing, so the launches the wrappers count while it runs
-        are taken back and kept as the loop's own.  A failed capture
-        raises: there is no eager fallback on CUDA."""
+        is first run once by ``_warm_up``, which leaves every cache leaf as
+        it found it, so the loop's first launch starts from the state it
+        was given; the capture itself launches nothing, so the launches the
+        wrappers count while it runs are taken back and kept as the loop's
+        own (the warm-up's stay counted).  A failed capture raises: there
+        is no eager fallback on CUDA."""
         step = self._model_step(state)
-        bound = state.t_end.clone()
-        state.t_end.copy_(state.t_dev)
-        here = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            self._step(state, step)
-        here.wait_stream(side)
+        self._warm_up(state, step)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -462,7 +534,6 @@ class ServingEngine:
         loop = DeviceLoop(graph, state.t_dev, state.t_end, state.lengths,
                           state.caps, state.done, launches)
         loop.capture_ms = (time.perf_counter() - t0) * 1e3
-        state.t_end.copy_(bound)
         self.captures.append(dict(bits=state.bits, ms=loop.capture_ms,
                                   paged=isinstance(state, PagedDecodeState)))
         return loop

@@ -218,7 +218,7 @@ B, BT, NB = 3, 4, 6          # W = 24 slots, in blocks of 4
 def _setup():
     cfg = reduced_cfg("bloom-3b").scaled(dtype="float32")
     p = jtr.init_params(cfg, jax.random.key(2))
-    tp = bridge.from_jax_params(jax.device_get(p), cfg.n_layers, "cpu")
+    tp = bridge.from_jax_params(jax.device_get(p), device="cpu")
     return cfg, p, tp
 
 

@@ -100,7 +100,7 @@ def _trees():
                                         dtype="float32")
     je = jeng.ServingEngine(cfg, seed=3, batch_capacity=2, s_max=8, n_max=4)
     tp = bridge.from_jax_params(jax.device_get(je._raw_params),
-                                cfg.n_layers, "cpu")
+                                device="cpu")
     return cfg, je._raw_params, tp
 
 
@@ -205,7 +205,7 @@ def test_continuous_runtime_with_frozen_records_matches_jax():
     je = jeng.ServingEngine(jcfg, seed=0, **kw)
     te = ServingEngine(get_arch("bloom-7b1").scaled(**dims),
                        params=bridge.from_jax_params(
-                           jax.device_get(je._raw_params), 1, "cpu"),
+                           jax.device_get(je._raw_params), device="cpu"),
                        device="cpu", **kw)
     spec = "dftsp:quant=auto,split=true,calib=measured"
     epochs, rate = 5, 6.0

@@ -287,7 +287,7 @@ def _pair(arch, dims, kw, seed=0):
     te = ServingEngine(
         get_arch(arch).scaled(**dims, dtype="float32"),
         params=bridge.from_jax_params(jax.device_get(je._raw_params),
-                                      jcfg.n_layers, "cpu"),
+                                      device="cpu"),
         device="cpu", **kw)
     return je, te
 

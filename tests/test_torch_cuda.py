@@ -18,7 +18,10 @@ bounds; K7 must equal K6 bitwise on the same values.  The decode loop on
 the device (a captured step in the WHILE node of ``csrc/decode_loop.cu``)
 is held bitwise to ``generate_reference`` and to itself, and a step at a
 device position bitwise to the step a host int drove (the kernels with
-scalar n_valid / evict), on every tier.
+scalar n_valid / evict), on every tier.  The recurrent, hybrid and audio
+families run no kernel: their captured step is held bitwise to the eager
+step, to ``generate_reference`` and to itself, and their refilled rows to
+the same prompt refilled alone.
 """
 from __future__ import annotations
 
@@ -1341,6 +1344,135 @@ def test_vlm_engine_on_the_card(cuda, bits):
     np.testing.assert_array_equal(p.tokens, a.tokens)
     s = eng.generate_via_chunks(prompts, caps, k=5, quant_bits=bits)
     np.testing.assert_array_equal(s.tokens, a.tokens)
+
+
+def _recurrent_engine(arch):
+    """A bfloat16 engine of the recurrent, hybrid or audio family at its
+    own widths, cut to every kind of block at 2-3 layers (xLSTM: 1 mLSTM +
+    1 sLSTM; Zamba2: 2 Mamba2 layers + the shared block + 1; Whisper: 2
+    decoder layers over 1500 frames) and vocab 512, B = 8."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_arch(arch).scaled(vocab=512)
+    if cfg.xlstm is not None:
+        cfg = cfg.scaled(n_layers=2, xlstm=dataclasses.replace(
+            cfg.xlstm, slstm_every=2))
+    elif cfg.hybrid is not None:
+        cfg = cfg.scaled(n_layers=3, hybrid=dataclasses.replace(
+            cfg.hybrid, attn_every=2))
+    else:
+        cfg = cfg.scaled(n_layers=2)
+    return ServingEngine(cfg, batch_capacity=8, s_max=32, n_max=16,
+                         quant_bits=8, seed=5, device="cuda")
+
+
+RECURRENT = ["xlstm-1.3b", "zamba2-7b", "whisper-tiny"]
+
+
+def _no_kernel(counts):
+    return counts["decode_loop"] > 0 and not any(
+        v for k, v in counts.items() if k != "decode_loop")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_captured_step_equals_eager_and_replays_bitwise(cuda, arch,
+                                                                  bits):
+    """The recurrent, hybrid and audio families' decode step captured in
+    the device loop: the first ``generate`` after the capture equals
+    ``generate_reference`` (eager steps) bitwise, with no kernel launched;
+    a cohort advanced by the device loop equals the same cohort advanced
+    by the eager loop, cache leaves included; two replays from the same
+    state are bitwise equal."""
+    eng = _recurrent_engine(arch)
+    prompts, caps = _family_prompts(3), [16, 3, 16, 9, 16, 1, 16, 12]
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    assert len(eng.captures) == 1 and _no_kernel(ops.launch_counts())
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    runs = []
+    for eager in (False, False, True):
+        st = eng.start_chunked(prompts, [16] * 8, quant_bits=bits)
+        if eager:
+            eng._advance = eng._advance_eager
+        try:
+            st = eng.generate_chunked(st, 8)
+        finally:
+            eng.__dict__.pop("_advance", None)
+        out, _, _, t = eng.poll_chunked(st)
+        assert t == 8
+        runs.append((out, st.cur.clone(),
+                     [x.clone() for layer in st.cache for x in layer.values()]))
+    for o, c, leaves in runs[1:]:
+        np.testing.assert_array_equal(o, runs[0][0])
+        assert torch.equal(c, runs[0][1])
+        assert all(torch.equal(x, y) for x, y in zip(leaves, runs[0][2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_refilled_row_on_the_card(cuda, arch):
+    """A row refilled at step 4 through the device loop equals the same
+    prompt refilled at the same step into a cohort with no other live row,
+    bitwise; an xLSTM row (no attention slots) also equals the prompt
+    served alone."""
+    eng = _recurrent_engine(arch)
+    prompts = _family_prompts(4)
+    new = [9, 8, 7, 6, 5]
+    caps = [16] * 8
+    caps[1] = 2
+    rows = []
+    for ps, cs in ((prompts, caps), ([prompts[0]], [4])):
+        st = eng.start_chunked(ps, cs)
+        st = eng.generate_chunked(st, 4)
+        _, _, _, t = eng.poll_chunked(st)
+        assert t == 4
+        st = eng.refill_chunked(st, [1], [new], [10], t_now=t)
+        while True:
+            st = eng.generate_chunked(st, 4)
+            out, lengths, done, t = eng.poll_chunked(st)
+            if eng.exhausted(lengths, done, st.caps_host, t):
+                break
+        rows.append(out[1, :lengths[1]])
+    np.testing.assert_array_equal(rows[0], rows[1])
+    assert len(rows[0]) >= 1
+    if arch == "xlstm-1.3b":
+        solo = eng.generate([new], [10])
+        np.testing.assert_array_equal(rows[0],
+                                      solo.tokens[0, :solo.lengths[0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,paged", [
+    ("bloom-3b", False), ("bloom-3b", True), ("granite-moe-1b-a400m", False),
+    ("internvl2-26b", False)] + [(a, False) for a in RECURRENT])
+def test_capture_leaves_every_cache_leaf_unchanged(cuda, arch, paged):
+    """Capturing a freshly prefilled cohort's step (its warm-up step runs
+    with the loop dead, on a side stream) leaves every cache leaf, slab or
+    arena, and every emission tensor bitwise as it found them, in all six
+    families; the captured loop then runs from that state."""
+    from repro_torch.serving.kv_arena import KVArena
+    eng = _recurrent_engine(arch) if arch in RECURRENT \
+        else _family_engine(arch)
+    arena = KVArena.for_engines(eng, block_tokens=16) if paged else None
+    st = eng.start_chunked(_family_prompts(5), [16] * 8, arena=arena)
+
+    def snapshot():
+        leaves = st.arena.buffers().values() if paged else \
+            [t for layer in st.cache for t in layer.values()]
+        return [t.clone() for t in leaves] + [getattr(st, n).clone() for n in (
+            "cur", "out", "lengths", "done", "t_dev", "t_end")]
+
+    before = snapshot()
+    eng._capture(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, snapshot()))
+    if paged:
+        eng.release_all(st)
 
 
 # ---------------------------------------------------------------------------

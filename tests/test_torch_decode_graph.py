@@ -59,8 +59,7 @@ def _pair(eos_id: int = 0):
     je = jeng.ServingEngine(jcfg, seed=5, eos_id=eos_id, **KW)
     te = ServingEngine(get_arch("bloom-3b").scaled(**DIMS, dtype="float32"),
                        params=bridge.from_jax_params(
-                           jax.device_get(je._raw_params), jcfg.n_layers,
-                           "cpu"),
+                           jax.device_get(je._raw_params), device="cpu"),
                        device="cpu", eos_id=eos_id, **KW)
     return je, te
 

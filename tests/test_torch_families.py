@@ -67,7 +67,7 @@ def _n_img(cfg):
 def _setup(arch):
     cfg = jax_cfg(arch)
     p = jtr.init_params(cfg, jax.random.key(1))
-    tp = bridge.from_jax_params(jax.device_get(p), cfg.n_layers, "cpu")
+    tp = bridge.from_jax_params(jax.device_get(p), device="cpu")
     rng = np.random.default_rng(0)
     toks = rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)
     img = (rng.standard_normal((B, _n_img(cfg), cfg.d_model)) * 0.02) \

@@ -59,7 +59,7 @@ def _pair(arch, bits=8, kv_bits=16):
     jcfg = reduced_cfg(arch).scaled(dtype="float32", kv_bits=kv_bits)
     je = jeng.ServingEngine(jcfg, quant_bits=bits, seed=3, **ENGINE_KW)
     tp = bridge.from_jax_params(jax.device_get(je._raw_params),
-                                jcfg.n_layers, "cpu")
+                                device="cpu")
     te = teng.ServingEngine(port_cfg(arch, kv_bits=kv_bits), params=tp,
                             quant_bits=bits, device="cpu", **ENGINE_KW)
     return je, te
@@ -240,7 +240,7 @@ def test_epoch_runtime_matches_jax(arch):
     je = jeng.ServingEngine(jcfg, seed=0, **kw)
     te = teng.ServingEngine(
         port_cfg(arch), params=bridge.from_jax_params(
-            jax.device_get(je._raw_params), jcfg.n_layers, "cpu"),
+            jax.device_get(je._raw_params), device="cpu"),
         device="cpu", **kw)
     want = JRuntime(jpaper_env(arch), jget_policy("dftsp"),
                     JExec(je, seed=5)).run(rate=9.0, n_epochs=3, seed=7)

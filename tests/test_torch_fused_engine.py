@@ -44,8 +44,7 @@ def _pair():
     je = jeng.ServingEngine(jcfg, seed=2, **KW)
     te = ServingEngine(get_arch("bloom-7b1").scaled(**DIMS),
                        params=bridge.from_jax_params(
-                           jax.device_get(je._raw_params), jcfg.n_layers,
-                           "cpu"),
+                           jax.device_get(je._raw_params), device="cpu"),
                        device="cpu", **KW)
     return je, te
 

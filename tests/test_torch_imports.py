@@ -30,13 +30,15 @@ bad = sorted(n for n in sys.modules
 print(len(names), ",".join(bad) or "-", ",".join(names))
 """
 
-# the modules of the continuous and fused slices, named so that a rename
-# or a lost module fails here and not only in the tests that use it
+# the modules of the continuous, fused and recurrent slices, named so that a
+# rename or a lost module fails here and not only in the tests that use it
 CONTINUOUS = ["repro_torch.serving.slo", "repro_torch.serving.kv_arena",
               "repro_torch.serving.engine", "repro_torch.serving.runtime",
               "repro_torch.kernels.flash_decode", "repro_torch.kernels.ops",
               "repro_torch.models.common", "repro_torch.models.transformer",
-              "repro_torch.bridge", "repro_torch.quant.calibration"]
+              "repro_torch.bridge", "repro_torch.quant.calibration",
+              "repro_torch.models.mamba2", "repro_torch.models.zamba",
+              "repro_torch.models.xlstm", "repro_torch.models.whisper"]
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():

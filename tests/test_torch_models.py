@@ -39,7 +39,7 @@ def port_cfg(arch):
 def _setup(arch):
     cfg = reduced_cfg(arch).scaled(dtype="float32")
     p = jtr.init_params(cfg, jax.random.key(1))
-    tp = bridge.from_jax_params(jax.device_get(p), cfg.n_layers, "cpu")
+    tp = bridge.from_jax_params(jax.device_get(p), device="cpu")
     toks = np.random.default_rng(0).integers(
         1, cfg.vocab, size=(B, S)).astype(np.int32)
     return cfg, p, tp, toks
@@ -106,11 +106,14 @@ def test_build_model_dense_only():
     assert params["embed"].shape == (512, 128)
     cache = m.init_cache(2, 16, "cpu")
     assert len(cache) == 2 and cache[0]["k"].shape == (2, 16, 4, 80)
-    # the recurrent, hybrid and audio families are not ported yet; moe
-    # (and vlm) build
-    for family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError):
-            api.build_model(get_arch("bloom-3b").scaled(family=family))
+    # every family builds: moe (and vlm), and the recurrent, hybrid and
+    # audio families, with their own caches and no paged step
+    for arch in ("xlstm-1.3b", "zamba2-7b", "whisper-tiny"):
+        m = api.build_model(get_arch(arch).scaled(
+            **REDUCTIONS[arch]))
+        assert m.decode_step_paged is None
+        assert all(leaf.shape[0] == 2 for layer in m.init_cache(2, 16, "cpu")
+                   for leaf in layer.values())
     moe = api.build_model(get_arch("granite-moe-1b-a400m").scaled(
         **REDUCTIONS["granite-moe-1b-a400m"]))
     assert "moe" in moe.init(gen)["layers"][0]

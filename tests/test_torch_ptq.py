@@ -67,7 +67,7 @@ def test_quantize_bridged_tree_bitwise(bits, act_bits):
     p = jtr.init_params(cfg, jax.random.key(0))
     jq = jptq.quantize_tree(p, bits, act_bits=act_bits)
     tq = tptq.quantize_tree(bridge.from_jax_params(jax.device_get(p),
-                                                   cfg.n_layers, "cpu"),
+                                                   device="cpu"),
                             bits, act_bits=act_bits)
     np.testing.assert_array_equal(np.asarray(jq["embed"].q), tq["embed"].q.numpy())
     for i, layer in enumerate(tq["layers"]):

@@ -40,7 +40,7 @@ def _engine():
     p = jtr.init_params(jcfg, jax.random.key(0))
     tcfg = get_arch("bloom-3b").scaled(**REDUCTIONS["bloom-3b"],
                                        dtype="float32")
-    tp = bridge.from_jax_params(jax.device_get(p), jcfg.n_layers, "cpu")
+    tp = bridge.from_jax_params(jax.device_get(p), device="cpu")
     return ServingEngine(tcfg, params=tp, quant_bits=8, **ENGINE_KW), p
 
 

@@ -45,7 +45,7 @@ def _engines(bits):
     jcfg = reduced_cfg("bloom-3b").scaled(dtype="float32")
     je = jeng.ServingEngine(jcfg, quant_bits=bits, seed=3, **ENGINE_KW)
     tp = bridge.from_jax_params(jax.device_get(je._raw_params),
-                                jcfg.n_layers, "cpu")
+                                device="cpu")
     tcfg = get_arch("bloom-3b").scaled(**REDUCTIONS["bloom-3b"],
                                        dtype="float32")
     te = teng.ServingEngine(tcfg, params=tp, quant_bits=bits, device="cpu",
@@ -239,7 +239,7 @@ def test_epoch_runtime_matches_jax():
     te = teng.ServingEngine(
         get_arch("bloom-3b").scaled(**TINY),
         params=bridge.from_jax_params(jax.device_get(je._raw_params),
-                                      jcfg.n_layers, "cpu"),
+                                      device="cpu"),
         device="cpu", **kw)
     want = JRuntime(jpaper_env("bloom-3b"), jget_policy("dftsp"),
                     JExec(je, seed=5)).run(rate=9.0, n_epochs=4, seed=7)
