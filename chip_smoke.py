@@ -159,6 +159,25 @@ Phases (any failure exits non-zero and prints no result):
    The small-reference phase (4) also serves the three reduced at float32
    (xlstm-1.3b at 9 layers, zamba2-7b at 13): card == CPU tokens at every
    precision.
+10. Training (M10), after zamba2-7b is freed and outside ``no_grad``;
+   float weights, so no K1-K7 counter (nor the decode loop) may move.
+   (a) One reduced float32 model of each family (olmo-1b, qwen3-1.7b,
+   granite-moe-1b-a400m, internvl2-26b, xlstm-1.3b and zamba2-7b with
+   every kind of block at 5 layers, whisper-tiny) trains 3 steps through
+   ``Trainer`` on the card and on the CPU from the same weights and
+   batches: the loss every step, and grad_norm and lr at the first, within
+   1e-4 (relative); grad_norm after the first update within 1e-3.
+   (c) olmo-1b's (params, AdamW state) go through a checkpoint and back
+   onto the card, bitwise.  (b) Full-width OLMo-1B (16 layers, d_model
+   2048, tied vocab 50,304, bf16, 1.18 B parameters) trains 30 steps
+   through ``repro_torch.launch.train.main`` at its defaults (batch 16,
+   seq 256, lr 3e-4, remat on): every loss finite, the last below the
+   first; ms a step (median of steps 2..N), tokens/s and the memory peak;
+   then one step through ``Trainer`` with remat off from the same seed,
+   its loss and grad_norm within 1e-3 of the first launcher step's, and
+   its memory peak; then the launcher's step (remat on) on that state,
+   its forward + backward and AdamW update timed apart beside their
+   bounds, and one step traced with ``torch.profiler`` (top 15 kernels).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -238,6 +257,24 @@ FAMILY_ARCHS = ("deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
 # (an sLSTM block; two shared-attention sites and a tail)
 RECURRENT_SMALL = (("xlstm-1.3b", dict(n_layers=9)),
                    ("zamba2-7b", dict(n_layers=13)), ("whisper-tiny", {}))
+# the training phase: one reduced model of each family at float32 (xLSTM
+# and Zamba2 with every kind of block at 5 layers), card against CPU over
+# TRAIN_SMALL_STEPS steps, relative: the loss every step, and grad_norm and
+# lr at the first step (the same weights: float32 sums in other orders),
+# within TRAIN_TOL; grad_norm after the first update within
+# TRAIN_TOL_LATER (Adam's normalised step turns a gradient element near
+# zero, where the devices' sums differ most against it, into an update of
+# full size, so the devices' weights part: reduced zamba2-7b's grad_norm
+# read 1.07e-4 apart at step 2 on an H100, every other model <= 4.2e-6);
+# full-width OLMo-1B for TRAIN_STEPS steps, remat on against off within
+# TRAIN_FULL_TOL (bf16, the same weights and batch)
+TRAIN_SMALL = (("olmo-1b", {}), ("qwen3-1.7b", {}),
+               ("granite-moe-1b-a400m", {}), ("internvl2-26b", {}),
+               ("xlstm-1.3b", dict(n_layers=5, xlstm=dict(slstm_every=2))),
+               ("zamba2-7b", dict(n_layers=5, hybrid=dict(attn_every=2))),
+               ("whisper-tiny", {}))
+TRAIN_SMALL_STEPS, TRAIN_STEPS = 3, 30
+TRAIN_TOL, TRAIN_TOL_LATER, TRAIN_FULL_TOL = 1e-4, 1e-3, 1e-3
 
 
 T0 = time.perf_counter()
@@ -1803,6 +1840,29 @@ def _kernel_events(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def _kernel_summary(events, top: int):
+    """Span, busy time (the union of the kernels' intervals), busy share
+    and the ``top`` kernel names by summed time of ``_kernel_events``."""
+    events = sorted(events, key=lambda e: e[1])
+    busy, cur_s, cur_e = 0.0, events[0][1], events[0][2]
+    for _, a, b in events[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    span = max(e[2] for e in events) - events[0][1]
+    by_name = {}
+    for name, a, b in events:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    return dict(span_ms=span / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / span if span else None,
+                top=[(name[:90], round(us / 1e3, 4), round(us / busy, 4))
+                     for name, us in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:top]])
+
+
 def trace_steps(engine, prompts, bits=8, top: int = 15):
     """One eager and one replayed decode step of a full cohort under
     ``torch.profiler``: the ``top`` device ops by summed time, the number
@@ -1835,30 +1895,12 @@ def trace_steps(engine, prompts, bits=8, top: int = 15):
         rec = dict(event_ms=start.elapsed_time(end), t=t,
                    kernels=len(events))
         if events:
-            events.sort(key=lambda e: e[1])
-            busy, cur_s, cur_e = 0.0, events[0][1], events[0][2]
-            for _, a, b in events[1:]:
-                if a > cur_e:
-                    busy += cur_e - cur_s
-                    cur_s, cur_e = a, b
-                else:
-                    cur_e = max(cur_e, b)
-            busy += cur_e - cur_s
-            span = max(e[2] for e in events) - events[0][1]
-            by_name = {}
-            for name, a, b in events:
-                by_name[name] = by_name.get(name, 0.0) + (b - a)
-            rec.update(span_ms=span / 1e3, busy_ms=busy / 1e3,
-                       busy_share=busy / span if span else None,
-                       top=[(name[:90], round(us / 1e3, 4),
-                             round(us / busy, 4))
-                            for name, us in sorted(by_name.items(),
-                                                   key=lambda kv: -kv[1])
-                            [:top]])
+            rec.update(_kernel_summary(events, top))
             log(f"trace: {engine.cfg.arch_id} {label} step: {len(events)} "
-                f"kernels over {span / 1e3:.3f} ms, busy {busy / 1e3:.3f} "
-                f"ms (busy share {busy / span:.3f}); top {top} by time "
-                f"(name, ms, share of busy): {rec['top']}")
+                f"kernels over {rec['span_ms']:.3f} ms, busy "
+                f"{rec['busy_ms']:.3f} ms (busy share "
+                f"{rec['busy_share']:.3f}); top {top} by time (name, ms, "
+                f"share of busy): {rec['top']}")
         else:
             log(f"trace: {engine.cfg.arch_id} {label} step: key_averages() "
                 f"show no device time; CUDA events: "
@@ -2892,6 +2934,250 @@ def kept_tables(engine):
 
 
 # ---------------------------------------------------------------------------
+# Training phase (M10)
+# ---------------------------------------------------------------------------
+
+
+def _train_counts_zero(what):
+    """Training runs float weights: no K1-K7 counter (nor the decode loop)
+    may move."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    check(not any(counts.values()),
+          f"training {what}: a kernel launched ({counts})")
+
+
+def _train_cfg(arch, over):
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import reduced
+    cfg = reduced(get_arch(arch))
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+          else v for k, v in over.items()}
+    return cfg.scaled(dtype="float32", **kw)
+
+
+def train_small_phase():
+    """Phase 10 (a) and (c): one reduced float32 model of each family
+    trains ``TRAIN_SMALL_STEPS`` steps on the card and on the CPU from the
+    same weights (drawn on the CPU from seed 0) and batches; the loss every
+    step, and grad_norm and lr at the first, must agree within
+    ``TRAIN_TOL``, grad_norm and lr at later steps within
+    ``TRAIN_TOL_LATER``.  Then olmo-1b's
+    (params, AdamW state) on the card go through a checkpoint under
+    ``build/`` and back onto the card, bitwise."""
+    from repro_torch import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer, TrainState, checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.utils.tree import tree_leaves
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_SMALL_STEPS)
+    out, kept = {}, None
+    ops.reset_launch_counts()
+    for arch, over in TRAIN_SMALL:
+        cfg = _train_cfg(arch, over)
+        cpu = Trainer(cfg, batch=2, seq=32, opt_cfg=opt, device="cpu")
+        gpu = Trainer(cfg, batch=2, seq=32, opt_cfg=opt, device="cuda")
+        s_cpu = cpu.init_state()
+        params = bridge.to_device(s_cpu.params, "cuda")
+        s_gpu, hg = gpu.run(TRAIN_SMALL_STEPS,
+                            state=TrainState(params, adamw_init(params)),
+                            log_every=1, log=lambda s: None)
+        _, hc = cpu.run(TRAIN_SMALL_STEPS, state=s_cpu, log_every=1,
+                        log=lambda s: None)
+        err = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hg, hc)]
+               for k in ("loss", "grad_norm", "lr")}
+        label = arch + ("-mixed" if over else "")
+        out[label] = dict(rel_err=err, loss_card=[h["loss"] for h in hg],
+                          loss_cpu=[h["loss"] for h in hc])
+        check(all(e <= TRAIN_TOL for e in err["loss"])
+              and err["grad_norm"][0] <= TRAIN_TOL
+              and err["lr"][0] <= TRAIN_TOL
+              and all(e <= TRAIN_TOL_LATER for k in ("grad_norm", "lr")
+                      for e in err[k][1:]),
+              f"training reduced {label}: card against CPU {err} beyond "
+              f"{TRAIN_TOL} (loss; the first step) or {TRAIN_TOL_LATER} "
+              f"(later steps)")
+        if kept is None:
+            kept = s_gpu
+    path = ROOT / "build" / "chip_smoke_train.npz"
+    path.parent.mkdir(exist_ok=True)
+    try:
+        checkpoint.save(str(path), (kept.params, kept.opt))
+        like = (kept.params, adamw_init(kept.params))
+        back = checkpoint.restore(str(path), like)
+    finally:
+        path.unlink(missing_ok=True)
+    check(all(b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(tree_leaves((kept.params, kept.opt)),
+                              tree_leaves(back))),
+          "training: the checkpoint round trip on the card changed a leaf")
+    _train_counts_zero("reduced")
+    log(f"training (reduced, float32, {TRAIN_SMALL_STEPS} steps): card == "
+        f"CPU within {TRAIN_TOL} (relative) in the loss every step and in "
+        f"grad_norm and lr at the first, {TRAIN_TOL_LATER} after; the "
+        f"olmo-1b checkpoint round trip on the card bitwise; no kernel "
+        f"launched: {json.dumps(out)}")
+    return out
+
+
+def train_step_breakdown(tr, state, top: int = 15):
+    """Steps of ``tr`` under the remat policy (the launcher's step): one to
+    warm up; one with the forward + backward (``value_and_grad``) and the
+    AdamW update timed apart between synchronizations, each beside its
+    bound (the forward and backward's matmul and attention operations over
+    the bf16 peak, counted without the recompute; AdamW's bytes: params,
+    grads and both moments read once, params and moments written once);
+    one under ``torch.profiler``: kernels, busy share, the ``top`` kernels
+    by time."""
+    import repro_torch.train.trainer as trm
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.utils.remat import remat_scan
+    from repro_torch.utils.tree import tree_leaves
+    cfg, B, S = tr.cfg, tr.batch, tr.seq
+    spans = {}
+    real = {"value_and_grad": trm.value_and_grad,
+            "adamw_update": trm.adamw_update}
+
+    def timed(key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[key](*a, **kw)
+            torch.cuda.synchronize()
+            spans[key] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    quiet = dict(log=lambda s: None)
+    with remat_scan(True):
+        state, _ = tr.run(1, state=state, **quiet)
+        for key in real:
+            setattr(trm, key, timed(key))
+        try:
+            state, _ = tr.run(1, state=state, **quiet)
+        finally:
+            for key, fn in real.items():
+                setattr(trm, key, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = tr.run(1, state=state, **quiet)
+            torch.cuda.synchronize()
+    leaves = tree_leaves(state.params)
+    n = sum(p.numel() for p in leaves)
+    adamw_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                      for p in leaves)
+    # every weight is a matmul's but an untied embedding table (a gather)
+    n_mm = n if cfg.tie_embeddings else n - cfg.vocab_padded() * cfg.d_model
+    fb_ops = 6 * n_mm * B * S + 3 * 4 * B * S * S * cfg.d_model * cfg.n_layers
+    out = dict(forward_backward_ms=spans["value_and_grad"],
+               adamw_ms=spans["adamw_update"],
+               forward_backward_bound_ms=bound_ms(0, fb_ops, "bf16")[0],
+               adamw_bound_ms=bound_ms(adamw_bytes, 0, "bf16")[0],
+               params=n, adamw_bytes=adamw_bytes)
+    events = _kernel_events(prof)
+    if events:
+        out.update(kernels=len(events), **_kernel_summary(events, top))
+    log(f"training olmo-1b step breakdown (remat on): forward + backward "
+        f"{out['forward_backward_ms']:.2f} ms (bound "
+        f"{out['forward_backward_bound_ms']:.2f}), AdamW "
+        f"{out['adamw_ms']:.2f} ms (bound {out['adamw_bound_ms']:.2f}, "
+        f"{adamw_bytes / 1e9:.1f} GB); trace: {json.dumps(out)}")
+    return out
+
+
+def train_full_phase(cfg):
+    """Phase 10 (b): full-width OLMo-1B trains ``TRAIN_STEPS`` steps
+    through ``repro_torch.launch.train.main`` at its defaults (batch 16,
+    seq 256, lr 3e-4, remat on), each step timed between synchronizations
+    (the launcher's step function is wrapped here, which leaves its loop
+    as it is): every loss finite, the last below the first; ms a step
+    (median of steps 2..N), tokens/s, the memory peak.  Then one step
+    through ``Trainer`` with remat off from the same seed: its loss and
+    grad_norm equal the first launcher step's within ``TRAIN_FULL_TOL``,
+    and its peak beside the remat peak; then ``train_step_breakdown``."""
+    import statistics
+    import repro_torch.launch.train as lt
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    B, S = 16, 256
+    steps = []
+    real = lt.make_train_step_fn
+
+    def timed(model, opt_cfg=None, microbatches=1):
+        step = real(model, opt_cfg, microbatches)
+
+        def run(params, opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              loss=float(out[2]["loss"]),
+                              grad_norm=float(out[2]["grad_norm"])))
+            return out
+        return run
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    lt.make_train_step_fn = timed
+    try:
+        t0 = time.perf_counter()
+        rc = lt.main(["--arch", cfg.arch_id, "--steps", str(TRAIN_STEPS),
+                      "--device", "cuda"])
+        total_s = time.perf_counter() - t0
+    finally:
+        lt.make_train_step_fn = real
+    peak_remat = torch.cuda.max_memory_allocated()
+    _train_counts_zero("olmo-1b")
+    losses = [st["loss"] for st in steps]
+    check(rc == 0 and len(steps) == TRAIN_STEPS,
+          f"launch.train returned {rc} after {len(steps)} steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"olmo-1b training: a loss is not finite {losses}")
+    check(losses[-1] < losses[0],
+          f"olmo-1b training: the last loss {losses[-1]} is not below the "
+          f"first {losses[0]}")
+    ms = statistics.median(st["ms"] for st in steps[1:])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, batch=B, seq=S, opt_cfg=AdamWConfig(
+        lr=3e-4, total_steps=TRAIN_STEPS), remat=False, seed=0,
+        device="cuda")
+    st0 = tr.init_state()
+    (st0, hist), off_ms = _timed(lambda: tr.run(1, state=st0,
+                                                log=lambda s: None))
+    row = hist[0]
+    peak_off = torch.cuda.max_memory_allocated()
+    breakdown = train_step_breakdown(tr, st0)
+    del tr, st0
+    _train_counts_zero("olmo-1b, remat off")
+    err = {k: abs(row[k] - steps[0][k]) / abs(steps[0][k])
+           for k in ("loss", "grad_norm")}
+    check(all(e <= TRAIN_FULL_TOL for e in err.values()),
+          f"olmo-1b: remat off's first step {row} != the launcher's "
+          f"{steps[0]} ({err} > {TRAIN_FULL_TOL})")
+    out = dict(steps=TRAIN_STEPS, batch=B, seq=S, launcher_s=total_s,
+               ms_per_step_median=ms, first_step_ms=steps[0]["ms"],
+               tokens_per_s=B * S / (ms / 1e3), losses=losses,
+               grad_norms=[st["grad_norm"] for st in steps],
+               step_ms=[st["ms"] for st in steps],
+               peak_bytes_remat=peak_remat, peak_bytes_no_remat=peak_off,
+               no_remat_first_step_ms=off_ms, no_remat_rel_err=err,
+               breakdown=breakdown)
+    log(f"training olmo-1b at full width (16 layers, d_model 2048, vocab "
+        f"50,304, bf16; B {B} x S {S}, remat on, {TRAIN_STEPS} steps through "
+        f"launch.train): {ms:.2f} ms a step (median of steps 2..N), "
+        f"{B * S / (ms / 1e3):.0f} tokens/s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, peak {peak_remat / 2**30:.2f} GiB; remat off "
+        f"(one step through Trainer, {off_ms:.0f} ms): peak "
+        f"{peak_off / 2**30:.2f} GiB, first-step loss and grad_norm within "
+        f"{err} of the launcher's: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -3014,6 +3300,16 @@ def main() -> int:
                   f"unexpected {arch} config {c}")
             fam[arch] = phase(c)
             _free()                        # each engine goes before the next
+    # training needs autograd: outside no_grad
+    train_small = train_small_phase()
+    cfg_olmo = get_arch("olmo-1b")
+    check(cfg_olmo.n_layers == 16 and cfg_olmo.d_model == 2048
+          and cfg_olmo.n_heads == 16 and cfg_olmo.d_ff == 8192
+          and cfg_olmo.vocab == 50304 and cfg_olmo.tie_embeddings
+          and cfg_olmo.dtype == "bfloat16",
+          f"unexpected olmo-1b config {cfg_olmo}")
+    train_full = train_full_phase(cfg_olmo)
+    _free()
     # K2 and the W8A8 tier's eager activation quantization, timed inside
     # one W8A8 prefill of each model
     for name, s_ in (("quant_matmul_w8a8_tc", sl),
@@ -3027,6 +3323,8 @@ def main() -> int:
     log(f"summary bloom-7b1: {json.dumps(sl7)}")
     for arch, f in fam.items():
         log(f"summary {arch}: {json.dumps(f)}")
+    training = dict(reduced=train_small, olmo_1b=train_full)
+    log(f"summary training: {json.dumps(training)}")
 
     runs = {**sl["runs"], **sl7["runs"]}
     for f in fam.values():

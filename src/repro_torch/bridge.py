@@ -20,7 +20,8 @@ A quantized JAX tree (its ``QTensor`` leaves, q (..., K, N) and scale
 (..., 1, N)) is sliced the same way into the port's ``QTensor``; the JAX
 package quantizes over axis -2 only, so a layer's slice is the port's own
 quantization of that layer, bit for bit.  ``cache_from_jax`` does the same
-for a decode cache.
+for a decode cache; a gradient tree goes through ``from_jax_params`` and
+an AdamW state through ``opt_state_from_jax``.
 """
 from __future__ import annotations
 
@@ -29,15 +30,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.api import STACKED
 from repro_torch.quant.ptq import QTensor
 from repro_torch.serving.engine import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-# stacked subtrees and the number of leading layer axes of each
-_STACKED = {"layers": 1, "main": 2, "tail": 1, "mlstm": 2, "slstm": 1,
-            "enc_layers": 1, "dec_layers": 1}
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -108,11 +107,24 @@ def from_jax_params(params: Any, device="cuda") -> Any:
     stacked leaves' leading axes give the layer counts."""
     out = {}
     for k, v in params.items():
-        if k in _STACKED:
-            out[k] = [_convert(t, device) for t in _unstack(v, _STACKED[k])]
+        if k in STACKED:
+            out[k] = [_convert(t, device) for t in _unstack(v, STACKED[k])]
         else:
             out[k] = _convert(v, device)
     return out
+
+
+def opt_state_from_jax(opt: Any, device="cuda"):
+    """The port's ``AdamWState`` from the JAX package's AdamW state handed
+    over as numpy arrays (``jax.device_get(opt)``): ``step`` a scalar, and
+    ``mu`` and ``nu`` param-shaped trees, unstacked as
+    ``from_jax_params`` unstacks the params (so a gradient tree bridges the
+    same way).  Resumes the port from the reference's state."""
+    from repro_torch.train.optimizer import AdamWState
+    step, mu, nu = opt
+    return AdamWState(step=to_tensor(np.asarray(step, np.int32), device),
+                      mu=from_jax_params(mu, device),
+                      nu=from_jax_params(nu, device))
 
 
 def cache_from_jax(cfg, cache: Any, device="cuda") -> list:

@@ -24,6 +24,13 @@ from repro_torch.config import ModelConfig
 Params = Any
 Cache = Any
 
+# The subtrees the JAX package stacks on leading layer axes (it scans over
+# layers), and the number of those axes; the port keeps each as a list of
+# per-layer dicts (``bridge`` slices them, ``train.optimizer`` counts the
+# axes back where AdamW's decay rule reads a leaf's rank).
+STACKED = {"layers": 1, "main": 2, "tail": 1, "mlstm": 2, "slstm": 1,
+           "enc_layers": 1, "dec_layers": 1}
+
 
 @dataclass
 class Model:

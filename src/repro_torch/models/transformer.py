@@ -23,6 +23,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.quant.ptq import QTensor
+from repro_torch.utils.remat import maybe_remat
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -115,12 +116,13 @@ def _layers(cfg: ModelConfig, params: Params, batch, on_kv=None,
     """The embedded inputs of ``batch`` through every layer, causal (within
     the sliding window, if any); returns (the hidden states before the
     final norm, the summed MoE aux loss or None).  ``on_kv(k, v)`` sees
-    each layer's k/v (B, S, nkv, dh)."""
+    each layer's k/v (B, S, nkv, dh).  Without ``on_kv`` each layer goes
+    through ``maybe_remat``."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    aux = None
-    for lp in params["layers"]:
+
+    def layer(x, lp):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
         att = common.chunked_causal_attention(q, k, v, cfg.sliding_window)
@@ -128,11 +130,16 @@ def _layers(cfg: ModelConfig, params: Params, batch, on_kv=None,
                           lp["attn"]["wo"])
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         out, a = _ffn(cfg, lp, h, with_aux)
-        x = x + out
-        if a is not None:
-            aux = a if aux is None else aux + a
         if on_kv is not None:
             on_kv(k, v)
+        return x + out, a
+
+    body = layer if on_kv is not None else maybe_remat(layer)
+    aux = None
+    for lp in params["layers"]:
+        x, a = body(x, lp)
+        if a is not None:
+            aux = a if aux is None else aux + a
     return x, aux
 
 

@@ -24,6 +24,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
+from repro_torch.utils.remat import maybe_remat
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -64,16 +65,22 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def encode(cfg: ModelConfig, params: Params,
            audio_embeds: torch.Tensor) -> torch.Tensor:
     """The encoder over the frame embeddings (B, F, D): bidirectional
-    attention over every frame; returns (B, F, D)."""
+    attention over every frame; returns (B, F, D).  Each layer goes
+    through ``maybe_remat``."""
     x = audio_embeds.to(common.torch_dtype(cfg))
     B, F_, _ = x.shape
     positions = _positions(B, F_, x.device)
-    for lp in params["enc_layers"]:
+
+    def layer(x, lp):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         x = x + common.attention_block(lp["attn"], cfg, h, positions,
                                        bidirectional=True)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
+        return x + common.ffn_apply(lp["ffn"], cfg, h)
+
+    body = maybe_remat(layer)
+    for lp in params["enc_layers"]:
+        x = body(x, lp)
     return common.apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -85,11 +92,13 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
              enc: torch.Tensor, on_layer=None) -> torch.Tensor:
     """Teacher-forced decoder pass; returns the final-normed hidden states.
     ``on_layer(k, v, xk, xv)`` sees each layer's self-attention k/v (B, S,
-    nkv, dh) and cross-attention keys and values."""
+    nkv, dh) and cross-attention keys and values; without it each layer
+    goes through ``maybe_remat``."""
     x = params["embed"][tokens]
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    for lp in params["dec_layers"]:
+
+    def layer(x, lp):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
         att = common.chunked_causal_attention(q, k, v)
@@ -99,9 +108,13 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         xk, xv = common.cross_kv(lp["xattn"], cfg, enc)
         x = x + common.cross_attend(lp["xattn"], cfg, h, xk, xv)
         h = common.apply_norm(cfg.norm, lp["norm3"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
         if on_layer is not None:
             on_layer(k, v, xk, xv)
+        return x + common.ffn_apply(lp["ffn"], cfg, h)
+
+    body = layer if on_layer is not None else maybe_remat(layer)
+    for lp in params["dec_layers"]:
+        x = body(x, lp)
     return common.apply_norm(cfg.norm, params["final_norm"], x)
 
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.mamba2 import _causal_conv
+from repro_torch.utils.remat import maybe_remat
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -282,7 +283,9 @@ def _slstm_cell_step(p: Params, nh: int, dh: int, xw: torch.Tensor, carry):
     is_ = torch.exp(it - m_new[..., None])
     c = fs * c + is_ * zt
     n = fs * n + is_
-    h_new = ot * c / torch.clamp(n, min=1e-6)
+    # maximum, not clamp: at n == 1e-6 its gradient splits between the
+    # two sides, as the JAX package's jnp.maximum does
+    h_new = ot * c / torch.maximum(n, n.new_full((), 1e-6))
     return c, n, h_new.to(h.dtype), m_new
 
 
@@ -373,15 +376,30 @@ def _blocks(cfg: ModelConfig, params: Params):
 def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                on_state=None) -> torch.Tensor:
     """The embedded sequence through every block and the final norm;
-    ``on_state(kind, state)`` sees each block's end state."""
-    for kind, lp in _blocks(cfg, params):
-        if kind == "m":
-            x, st = mlstm_block(cfg, lp, x, collect_state=on_state is not None)
-        else:
-            x, st = slstm_block(cfg, lp, x)
-            st = dict(zip(SLSTM_STATE, st))
+    ``on_state(state)`` sees each block's end state, in execution order.
+    Without ``on_state`` each block goes through ``maybe_remat``.  The JAX
+    package also wraps each group (its mLSTM layers and its sLSTM block)
+    around them; the port does not nest checkpoints (a nested non-reentrant
+    checkpoint failed its recompute check under PyTorch 2.11 on the card),
+    which recomputes the same values.  The JAX package's sharding hint on C
+    under remat does nothing on one device and is left out."""
+    wrap = maybe_remat if on_state is None else (lambda body: body)
+
+    def m_layer(x, lp):
+        x, st = mlstm_block(cfg, lp, x, collect_state=on_state is not None)
         if on_state is not None:
             on_state(st)
+        return x
+
+    def s_layer(x, lp):
+        x, st = slstm_block(cfg, lp, x)
+        if on_state is not None:
+            on_state(dict(zip(SLSTM_STATE, st)))
+        return x
+
+    body = {"m": wrap(m_layer), "s": wrap(s_layer)}
+    for kind, lp in _blocks(cfg, params):
+        x = body[kind](x, lp)
     return common.apply_norm(cfg.norm, params["final_norm"], x)
 
 

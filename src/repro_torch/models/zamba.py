@@ -29,6 +29,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common, mamba2
+from repro_torch.utils.remat import maybe_remat
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -88,10 +89,18 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                on_state=None, on_kv=None) -> torch.Tensor:
     """The embedded sequence through the stack and the final norm;
     ``on_state(st)`` sees each Mamba2 layer's end state and ``on_kv(k, v)``
-    each shared-attention site's k/v, in execution order."""
+    each shared-attention site's k/v, in execution order.  Without
+    callbacks, each group's Mamba2 layers and each shared-block site go
+    through ``maybe_remat``.  The JAX package wraps each Mamba2 layer and
+    each group around them (its tail is not wrapped); the port does not
+    nest checkpoints (a nested non-reentrant checkpoint failed its
+    recompute check under PyTorch 2.11 on the card), which recomputes the
+    same values."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    wrap = maybe_remat if on_state is None and on_kv is None \
+        else (lambda body: body)
 
     def mamba_layer(x, lp):
         h = common.apply_norm(cfg.norm, lp["norm"], x)
@@ -101,10 +110,14 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
             on_state(st)
         return x + out
 
+    def shared(x):
+        return _shared_fwd(cfg, params["shared"], x, positions, on_kv)
+
+    m_body, s_body = wrap(mamba_layer), wrap(shared)
     for layers in _groups(cfg, params):
         for lp in layers:
-            x = mamba_layer(x, lp)
-        x = _shared_fwd(cfg, params["shared"], x, positions, on_kv)
+            x = m_body(x, lp)
+        x = s_body(x)
     for lp in params.get("tail", []):
         x = mamba_layer(x, lp)
     return common.apply_norm(cfg.norm, params["final_norm"], x)

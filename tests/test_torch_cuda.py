@@ -21,7 +21,9 @@ device position bitwise to the step a host int drove (the kernels with
 scalar n_valid / evict), on every tier.  The recurrent, hybrid and audio
 families run no kernel: their captured step is held bitwise to the eager
 step, to ``generate_reference`` and to itself, and their refilled rows to
-the same prompt refilled alone.
+the same prompt refilled alone.  Training (float weights, no kernel) is
+held to the CPU within ``TRAIN_TOL`` (``TRAIN_TOL_LATER`` for grad_norm
+after the first update), and remat on to remat off.
 """
 from __future__ import annotations
 
@@ -1473,6 +1475,107 @@ def test_capture_leaves_every_cache_leaf_unchanged(cuda, arch, paged):
     assert all(torch.equal(a, b) for a, b in zip(before, snapshot()))
     if paged:
         eng.release_all(st)
+
+
+# ---------------------------------------------------------------------------
+# Training (M10): float weights, so no kernel launches
+# ---------------------------------------------------------------------------
+
+# one reduced model of each family at float32; xLSTM and Zamba2 with every
+# kind of block at 5 layers
+TRAIN_CASES = {"olmo-1b": {}, "granite-moe-1b-a400m": {},
+               "internvl2-26b": {},
+               "xlstm-1.3b": dict(n_layers=5, xlstm=dict(slstm_every=2)),
+               "zamba2-7b": dict(n_layers=5, hybrid=dict(attn_every=2)),
+               "whisper-tiny": {}}
+# card against CPU, relative: the loss every step, grad_norm and lr at the
+# first (the same weights: float32 sums in other orders) within TRAIN_TOL;
+# grad_norm and lr after the first AdamW update within TRAIN_TOL_LATER
+# (Adam's normalised step turns a gradient element near zero into an
+# update of full size, so the devices' weights part: reduced Zamba2's
+# grad_norm read 1.07e-4 apart at step 2 on an H100)
+TRAIN_TOL, TRAIN_TOL_LATER = 1e-4, 1e-3
+
+
+def _train_cfg(arch):
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import reduced
+    cfg = reduced(get_arch(arch))
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+          else v for k, v in TRAIN_CASES[arch].items()}
+    return cfg.scaled(dtype="float32", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(TRAIN_CASES))
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Three train steps from the same weights and batches on the card and
+    on the CPU, within ``TRAIN_TOL`` / ``TRAIN_TOL_LATER``; no kernel
+    counter moves."""
+    from repro_torch import bridge
+    from repro_torch.train import Trainer, TrainState
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    cfg = _train_cfg(arch)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    cpu = Trainer(cfg, batch=2, seq=32, opt_cfg=opt, device="cpu")
+    gpu = Trainer(cfg, batch=2, seq=32, opt_cfg=opt, device="cuda")
+    s_cpu = cpu.init_state()
+    params = bridge.to_device(s_cpu.params, "cuda")
+    ops.reset_launch_counts()
+    _, hg = gpu.run(3, state=TrainState(params, adamw_init(params)),
+                    log_every=1, log=lambda s: None)
+    assert not any(ops.launch_counts().values())
+    _, hc = cpu.run(3, state=s_cpu, log_every=1, log=lambda s: None)
+    for i, (a, b) in enumerate(zip(hg, hc)):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=TRAIN_TOL)
+        for k in ("grad_norm", "lr"):
+            np.testing.assert_allclose(
+                a[k], b[k], rtol=TRAIN_TOL if i == 0 else TRAIN_TOL_LATER)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(TRAIN_CASES))
+def test_remat_on_equals_off_on_the_card(cuda, arch):
+    """The loss and every gradient leaf with the remat policy on and off,
+    on the card: the loss bitwise, each leaf within 1e-6 of its largest
+    magnitude (a backward may accumulate in another order)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.trainer import to_batch, value_and_grad
+    from repro_torch.utils.remat import remat_scan
+    from repro_torch.utils.tree import tree_leaves
+    cfg = _train_cfg(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = to_batch(SyntheticLM(cfg, 2, 32).next_batch(), "cuda")
+    (l0, _), g0 = value_and_grad(model.loss_fn, params, batch)
+    with remat_scan(True):
+        (l1, _), g1 = value_and_grad(model.loss_fn, params, batch)
+    assert torch.equal(l0, l1)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+
+
+@pytest.mark.cuda
+def test_train_launcher_one_step_on_the_card(cuda, tmp_path):
+    """``launch.train.main`` at the reduced shape on the card: one step,
+    a checkpoint that restores onto the card, no kernel launched."""
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.api import build_model
+    from repro_torch.config import get_arch
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import adamw_init
+    path = str(tmp_path / "ck.npz")
+    ops.reset_launch_counts()
+    assert tlaunch.main(["--reduced", "--steps", "1", "--batch", "2",
+                         "--seq", "16", "--checkpoint", path]) == 0
+    assert not any(ops.launch_counts().values())
+    cfg = get_arch("olmo-1b").scaled(**dict(tlaunch.REDUCED, n_kv_heads=4))
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    _, opt = checkpoint.restore(path, (params, adamw_init(params)))
+    assert int(opt.step) == 1 and opt.mu["embed"].is_cuda
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,30 @@ CONTINUOUS = ["repro_torch.serving.slo", "repro_torch.serving.kv_arena",
               "repro_torch.models.xlstm", "repro_torch.models.whisper"]
 
 
+# the training slice's modules
+TRAINING = ["repro_torch.train", "repro_torch.train.data",
+            "repro_torch.train.optimizer", "repro_torch.train.trainer",
+            "repro_torch.train.checkpoint", "repro_torch.utils.remat",
+            "repro_torch.utils.tree", "repro_torch.launch.steps",
+            "repro_torch.launch.train"]
+
+
+def test_training_modules_import_without_jax_or_repro():
+    """The training slice's modules exist, import, and load no JAX and no
+    ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = ("import importlib, sys\n"
+             f"for m in {TRAINING!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(n for n in sys.modules if n == 'jax' or "
+             "n.startswith(('jax.', 'jaxlib')) or n == 'repro' or "
+             "n.startswith('repro.')))\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
