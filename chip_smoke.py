@@ -198,10 +198,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and tensor-core
-# operations/s by operand type.  Bounds are stated against these.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# phase 10's medians (ms a step) on an NVIDIA H100 80GB HBM3 at 700 W
+# while the launcher still ran without a mesh, beside which phase 11
+# prints this run's launcher steps through the mesh of one
+UNMESHED_OLMO_STEP_MS = (244.83, 271.74)
 
 # BLOOM-3B serving shapes: one layer's quantized matmuls as (name, K, N)
 LAYER_MATMULS = [("wq", 2560, 2560), ("wk", 2560, 2560), ("wv", 2560, 2560),
@@ -334,8 +334,12 @@ def device_ms(fn, n_inputs: int = 1, budget_s: float = 0.05) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float, op_type: str):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS[op_type]
+    """The least ms for the work: bytes over the card's HBM rate and
+    operations over its dense tensor-core peak for ``op_type``, from the
+    port's record ``config.H100`` (NVIDIA's H100 SXM data sheet)."""
+    from repro_torch.config import H100, H100_INT8_OPS
+    t_bytes = n_bytes / H100.hbm_bw
+    t_ops = n_ops / {"bf16": H100.peak_flops, "int8": H100_INT8_OPS}[op_type]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3178,6 +3182,268 @@ def train_full_phase(cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the hardware record, the serve launcher's cost models, the mesh
+# of one, the roofline and the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CASES = (("olmo-1b", "train_4k", "--single-pod-only"),
+                ("qwen3-1.7b", "decode_32k", "--multi-pod-only"))
+
+
+def start_dryruns():
+    """Phase 11 (e), started at the beginning of the run so that it
+    overlaps the card's work: each case in a process of its own (its own
+    process-group state), CPU only, one thread each."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = []
+    for arch, shape, mesh in DRYRUN_CASES:
+        out = ROOT / "build" / f"dryrun_{arch}_{shape}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, mesh, "--json", str(out)]
+        if out.exists():
+            out.unlink()
+        procs.append((arch, shape, out, time.time(), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    import atexit
+    atexit.register(_stop, [p[-1] for p in procs])
+    return procs
+
+
+def _stop(procs):
+    """Stop the dry-run processes that are still running (a failed run)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryruns(procs):
+    """Phase 11 (e): each dry-run case exits 0; its record and seconds."""
+    out = {}
+    for arch, shape, path, t0, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        check(proc.returncode == 0, f"dryrun {arch} x {shape} exited "
+              f"{proc.returncode}: {text[-2000:]}")
+        # from its start to the moment it wrote its record
+        secs = path.stat().st_mtime - t0
+        (rec,) = json.loads(path.read_text())["results"]
+        keep = {k: rec[k] for k in (
+            "mesh", "chips", "bytes_per_device", "fits", "t_compute",
+            "t_memory", "t_collective", "bottleneck", "collective_bytes",
+            "traced_flops", "model_flops", "t_trace_s")}
+        log(f"phase 11 (e): dryrun {arch} x {shape} x {rec['mesh']}: exit 0, "
+            f"its record written {secs:.1f} s after its start (import "
+            f"included; it ran beside the card's phases): "
+            f"{json.dumps(keep)}")
+        out[f"{arch} {shape}"] = dict(keep, seconds=secs)
+    return out
+
+
+def record_phase(card):
+    """Phase 11 (a): the card against the port's ``H100`` record."""
+    import dataclasses
+    from repro_torch.config import H100, H100_INT8_OPS
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 11 (a): nvidia-smi {card!r}; torch: {name}, total_memory "
+        f"{total} B ({total / 2**30:.3f} GiB); config.H100 "
+        f"{dataclasses.asdict(H100)}, int8 peak {H100_INT8_OPS:.4g}")
+    check("H100" in name, f"the card is {name!r}, not an H100")
+    check(abs(total - H100.hbm_bytes) <= 0.01 * H100.hbm_bytes,
+          f"total_memory {total} is not within 1 % of H100.hbm_bytes "
+          f"{H100.hbm_bytes}")
+    return dict(card=card, name=name, total_memory=total,
+                hbm_bytes=H100.hbm_bytes)
+
+
+def serve_env_phase():
+    """Phase 11 (b): the serve launcher at full-width BLOOM-3B, W8A16, 2
+    epochs at rate 10, with ``--h100-env`` and with the paper's cost
+    model: exit 0, K1 and K4 launch; served, tokens and methods; the
+    H100 cost model's time for the first epoch's batch beside that batch's
+    measured ``generate`` ms (the executor's call, between
+    synchronizations)."""
+    import io
+    import repro_torch.launch.serve as lserve
+    from repro_torch.core import problem
+    from repro_torch.kernels import ops
+    from repro_torch.serving import runtime as rt
+    out = {}
+    for label, flags in (("h100_env", ["--h100-env"]), ("paper_env", [])):
+        batches = []
+        real = rt.EngineExecutor.execute
+
+        def timed(self, env, decision):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = real(self, env, decision)
+            torch.cuda.synchronize()
+            batches.append((env, list(decision.selected),
+                            (time.perf_counter() - t0) * 1e3))
+            return n
+
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        rt.EngineExecutor.execute = timed
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = lserve.main(["--arch", "bloom-3b", "--quant", "W8A16",
+                                  "--epochs", "2", "--rate", "10",
+                                  "--device", "cuda"] + flags)
+            run_s = time.perf_counter() - t0
+        finally:
+            rt.EngineExecutor.execute = real
+        counts = ops.launch_counts()
+        line = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("[serve]")]
+        check(rc == 0 and len(line) == 1,
+              f"serve {label}: exit {rc}, output {buf.getvalue()[-500:]}")
+        check(counts["w8a16"] > 0 and counts["flash_decode"] > 0,
+              f"serve {label}: K1 or K4 did not launch: {counts}")
+        first = next(((env, sel, ms) for env, sel, ms in batches if sel),
+                     None)
+        check(first is not None, f"serve {label}: no batch was served")
+        env, sel, ms = first
+        row = dict(line=line[0], run_s=run_s,
+                   launches={k: v for k, v in counts.items() if v},
+                   first_batch=len(sel), first_batch_generate_ms=ms,
+                   env_C=env.C, env_M=env.M)
+        if label == "h100_env":
+            row["first_batch_cost_model_ms"] = \
+                problem.batch_compute_time(env, sel) * 1e3
+        log(f"phase 11 (b): serve --arch bloom-3b {' '.join(flags)}: "
+            f"{line[0]} in {run_s:.1f} s; first batch {len(sel)} requests, "
+            f"generate {ms:.1f} ms"
+            + (f", H100 cost model {row['first_batch_cost_model_ms']:.3f} ms"
+               if label == "h100_env" else "")
+            + f"; {json.dumps(row)}")
+        out[label] = row
+        _free()
+    return out
+
+
+def mesh_step_phase(cfg):
+    """Phase 11 (c): one full-width OLMo-1B step through the mesh path
+    (``make_host_mesh()``: an NCCL group of one, params and AdamW state
+    placed by ``param_specs(fsdp=False)``, the step inside the mesh's axis
+    context, remat on) against one step of the plain
+    ``make_train_step_fn`` from the same seed and batch: the loss,
+    grad_norm and every param leaf bitwise equal (deterministic
+    algorithms on for both)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models.api import build_model
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
+                                             adamw_init)
+    from repro_torch.train.trainer import to_batch
+    from repro_torch.utils.remat import remat_scan
+    from repro_torch.utils.sharding import P
+    from repro_torch.utils.tree import tree_leaves
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS)
+    batch = to_batch(SyntheticLM(cfg, 16, 256).next_batch(), "cuda")
+
+    def run(on_mesh):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw_init(params)
+        step = lsteps.make_train_step_fn(model, opt_cfg)
+        if not on_mesh:
+            with remat_scan(True):
+                params, opt, m = step(params, opt, batch)
+            return tree_leaves(params), m, None
+        own = lmesh.owns_group("cuda")
+        try:
+            mesh = lmesh.make_host_mesh(device_type="cuda")
+            info = dict(backend=dist.get_backend(),
+                        world=dist.get_world_size(),
+                        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+            specs = lsteps.param_specs(model, mesh, fsdp=False)
+            params = lsteps.shardings(mesh, specs, params)
+            opt = lsteps.shardings(
+                mesh, AdamWState(step=P(), mu=specs, nu=specs), opt)
+            with lsteps.mesh_step(mesh), remat_scan(True):
+                params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        finally:
+            if own:
+                dist.destroy_process_group()
+        return tree_leaves(params), m, info
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (plain, mp, _), plain_ms = _timed(lambda: run(False))
+        (meshed, mm, info), mesh_ms = _timed(lambda: run(True))
+    finally:
+        torch.use_deterministic_algorithms(det)
+    check(info["backend"] == "nccl" and info["world"] == 1
+          and info["mesh"] == {"data": 1, "model": 1},
+          f"the mesh of one: {info}")
+    check(all(type(t) is torch.Tensor for t in meshed),
+          "a mesh of one placed a DTensor")
+    same = [torch.equal(a, b) for a, b in zip(plain, meshed)]
+    check(torch.equal(mp["loss"], mm["loss"])
+          and torch.equal(mp["grad_norm"], mm["grad_norm"]) and all(same),
+          f"olmo-1b: the mesh step is not the plain step bitwise: loss "
+          f"{float(mp['loss'])} vs {float(mm['loss'])}, "
+          f"{same.count(False)} of {len(same)} leaves differ")
+    out = dict(mesh=info, loss=float(mm["loss"]),
+               grad_norm=float(mm["grad_norm"]), leaves=len(same),
+               plain_step_ms=plain_ms, mesh_step_ms=mesh_ms)
+    log(f"phase 11 (c): olmo-1b at full width, one step through "
+        f"make_host_mesh() ({info}) == the plain step bitwise: loss, "
+        f"grad_norm and all {len(same)} leaves; {json.dumps(out)}")
+    del plain, meshed
+    _free()
+    return out
+
+
+def roofline_phase(cfg_olmo, train_full, sl):
+    """Phase 11 (d): ``roofline_terms(*analytic_costs(...), 0, 1, H100)``
+    beside the measured times: OLMo-1B's train step at B 16 x S 256
+    (phase 10's launcher median, now through the mesh of one) and
+    BLOOM-3B's decode step at B = 8 over a 640-slot cache (the device ms
+    of its replayed W8A16 step, phase 5); each as a share of the
+    roofline (bound / measured).  The analytic model counts bf16
+    weights."""
+    from repro_torch.config import H100, ShapeConfig, get_arch
+    from repro_torch.roofline.analysis import (analytic_costs,
+                                               dominant_term, roofline_terms)
+    out = {}
+    for name, arch_cfg, shape, ms in (
+            ("olmo-1b train", cfg_olmo,
+             ShapeConfig("olmo_train", 256, 16, "train"),
+             train_full["ms_per_step_median"]),
+            ("bloom-3b decode W8A16", get_arch("bloom-3b"),
+             ShapeConfig("bloom_decode", S_MAX + N_MAX, BATCH,
+                         "decode"),
+             sl["timings"]["W8A16"]["decode_device_ms_per_step"])):
+        flops, bytes_ = analytic_costs(arch_cfg, shape)
+        terms = roofline_terms(flops, bytes_, 0, 1, H100)
+        bound = max(terms.values()) * 1e3
+        row = dict(flops=flops, bytes=bytes_,
+                   **{k: v * 1e3 for k, v in terms.items()},
+                   bottleneck=dominant_term(terms), bound_ms=bound,
+                   measured_ms=ms, share=bound / ms)
+        log(f"phase 11 (d): {name} at {shape}: roofline (ms) "
+            f"{ {k: round(v * 1e3, 4) for k, v in terms.items()} }, "
+            f"bound {bound:.3f} ms ({row['bottleneck']}) beside "
+            f"{ms:.3f} ms measured: {row['share']:.1%} of the roofline")
+        out[name] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -3198,6 +3464,7 @@ def main() -> int:
         log("FAILED: torch.cuda.is_available() is False: this script "
             "measures the CUDA kernels and has no CPU mode")
         return 2
+    dryruns = start_dryruns()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3310,6 +3577,24 @@ def main() -> int:
           f"unexpected olmo-1b config {cfg_olmo}")
     train_full = train_full_phase(cfg_olmo)
     _free()
+    # phase 11: the hardware record, the cost models, the mesh, the roofline
+    # and the dry run
+    t11 = time.perf_counter()
+    m = train_full["ms_per_step_median"]
+    log(f"phase 11 (c): phase 10's {TRAIN_STEPS} launcher steps ran through "
+        f"make_host_mesh() (a mesh of one): median {m:.2f} ms a step beside "
+        f"{UNMESHED_OLMO_STEP_MS[0]}-{UNMESHED_OLMO_STEP_MS[1]} ms without "
+        f"a mesh (earlier runs on the same card)")
+    phase11 = dict(record=record_phase(card))
+    with torch.no_grad():
+        phase11["serve"] = serve_env_phase()
+    phase11["mesh_step"] = mesh_step_phase(cfg_olmo)
+    phase11["launcher_median_ms"] = m
+    phase11["roofline"] = roofline_phase(cfg_olmo, train_full, sl)
+    phase11["dryrun"] = finish_dryruns(dryruns)
+    phase11["seconds"] = time.perf_counter() - t11
+    log(f"summary phase 11 ({phase11['seconds']:.1f} s): "
+        f"{json.dumps(phase11)}")
     # K2 and the W8A8 tier's eager activation quantization, timed inside
     # one W8A8 prefill of each model
     for name, s_ in (("quant_matmul_w8a8_tc", sl),

@@ -1,17 +1,18 @@
 """Configuration system of the PyTorch port (a copy of ``repro.config``).
 
-Frozen dataclasses describing model architectures.  Every carried
-architecture registers a ``ModelConfig`` via :func:`register_arch`; lookup
-is by the canonical (dash-separated) id, e.g. ``get_arch("bloom-3b")``.
-The TPU hardware, mesh, quantization and input-shape records of the
-original are left out: nothing in this package reads them.
+Frozen dataclasses describing model architectures, input shapes, meshes,
+hardware and quantization.  Every carried architecture registers a
+``ModelConfig`` via :func:`register_arch`; lookup is by the canonical
+(dash-separated) id, e.g. ``get_arch("bloom-3b")``.  Besides the JAX
+package's TPU record ``V5E``, ``H100`` describes the card the port runs on.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -184,6 +185,97 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / hardware
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """Per-chip constants read by the roofline and the serving cost model.
+
+    ``ici_bw`` is the chip-to-chip rate a collective's bytes are divided
+    by.  For ``V5E`` (the JAX package's TPU v5e defaults) it is one ICI
+    link.  For ``H100`` it is one GPU's NVLink 4 rate in one direction,
+    which holds inside one node of 8 GPUs: a model axis wider than 8
+    crosses the node boundary, where the NIC (about 50 GB/s a GPU on NDR
+    InfiniBand) bounds a collective, so ``t_collective`` is then a lower
+    bound."""
+    name: str = "tpu-v5e"
+    peak_flops: float = 197e12       # bf16 FLOP/s per chip
+    hbm_bw: float = 819e9            # bytes/s per chip
+    ici_bw: float = 50e9             # bytes/s per link
+    hbm_bytes: float = 16 * 2**30    # per chip
+
+
+V5E = HardwareSpec()
+
+# NVIDIA H100 SXM5 80GB at 700 W, from NVIDIA's H100 datasheet: 989 TFLOP/s
+# bf16 dense (the datasheet's 1979 is with 2:4 sparsity), 3.35 TB/s HBM3,
+# 900 GB/s NVLink 4 a GPU in both directions (450e9 in one).  hbm_bytes is
+# the capacity the card reports: torch.cuda.get_device_properties(0)
+# .total_memory = 85,017,493,504 B (79.18 GiB) on an "NVIDIA H100 80GB
+# HBM3, 700.00 W" under torch 2.11 (chip_smoke.py phase 11 (a), which
+# holds the record within 1 % of the card).
+H100 = HardwareSpec(name="h100-sxm5-80gb", peak_flops=989e12,
+                    hbm_bw=3.35e12, ici_bw=450e9,
+                    hbm_bytes=85_017_493_504)
+# int8 dense tensor-core peak of the same card (datasheet: 1979 TOPS); the
+# record has no field for it
+H100_INT8_OPS = 1979e12
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# Quantization
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """Post-training quantization description (paper §II-B.3).
+
+    ``alpha`` scales memory, ``beta`` scales compute time, ``dppl`` is the
+    perplexity differential (per model, from offline calibration — the paper's
+    Table II values are the defaults in ``core/quantization.py``).
+    """
+    name: str = "W16A16"
+    weight_bits: int = 16
+    act_bits: int = 16
+    method: str = "none"       # none | gptq | zq-local | rtn
+
+
+# ---------------------------------------------------------------------------
 # Architecture registry
 # ---------------------------------------------------------------------------
 
@@ -198,6 +290,12 @@ _ARCHS = ("bloom-3b", "bloom-7b1", "opt-13b", "olmo-1b",
           "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b",
           "xlstm-1.3b", "zamba2-7b", "whisper-tiny")
 _CONFIG_MODULES = [a.replace("-", "_").replace(".", "_") for a in _ARCHS]
+# the ten architectures the dry run covers (the JAX package's assigned set)
+_ASSIGNED_ARCHS = (
+    "xlstm-1.3b", "mistral-large-123b", "internvl2-26b", "olmo-1b",
+    "whisper-tiny", "mixtral-8x22b", "deepseek-coder-33b", "zamba2-7b",
+    "granite-moe-1b-a400m", "qwen3-1.7b",
+)
 
 
 def register_arch(cfg: ModelConfig) -> ModelConfig:
@@ -217,3 +315,26 @@ def get_arch(arch_id: str) -> ModelConfig:
     if arch_id not in _ARCH_REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_ARCH_REGISTRY)}")
     return _ARCH_REGISTRY[arch_id]
+
+
+def list_archs(assigned_only: bool = False) -> Tuple[str, ...]:
+    _ensure_loaded()
+    if assigned_only:
+        return _ASSIGNED_ARCHS
+    return tuple(sorted(_ARCH_REGISTRY))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which of the 4 assigned input shapes run for this arch.
+
+    long_500k requires sub-quadratic decode (SSM/hybrid state or sliding
+    window); pure full-attention archs skip it (DESIGN.md §4).
+    """
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")
+    return tuple(out)

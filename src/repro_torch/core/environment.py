@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-from repro_torch.config import ModelConfig, get_arch
+from repro_torch.config import H100, ModelConfig, V5E, get_arch
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.quantization import QuantMethod, get_method
 
@@ -52,5 +52,29 @@ def paper_env(model: str = "bloom-3b", quant: str = "W8A16",
     defaults = dict(
         model=get_arch(model), quant=get_method(quant),
         C=20 * 1.33e12, M=20 * 32e9, n_units=20, paper_faithful=True)
+    defaults.update(kw)
+    return EdgeEnv(**defaults)
+
+
+def tpu_env(model: str, quant: str = "W8A16", chips: int = 16,
+            **kw) -> EdgeEnv:
+    """TPU v5e edge pod-slice (hardware adaptation, DESIGN.md §3)."""
+    defaults = dict(
+        model=get_arch(model), quant=get_method(quant),
+        C=chips * V5E.peak_flops, M=chips * V5E.hbm_bytes, n_units=chips,
+        paper_faithful=False)
+    defaults.update(kw)
+    return EdgeEnv(**defaults)
+
+
+def h100_env(model: str, quant: str = "W8A16", chips: int = 1,
+             **kw) -> EdgeEnv:
+    """The card the port runs on: ``chips`` H100s (bf16 dense peak and the
+    memory the card reports, ``config.H100``), priced as ``tpu_env``
+    prices its TPU slice."""
+    defaults = dict(
+        model=get_arch(model), quant=get_method(quant),
+        C=chips * H100.peak_flops, M=chips * H100.hbm_bytes, n_units=chips,
+        paper_faithful=False)
     defaults.update(kw)
     return EdgeEnv(**defaults)

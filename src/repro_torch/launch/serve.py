@@ -11,8 +11,11 @@ Whisper); ``--reduced`` cuts one to the reduced shape the test suite uses
 for it (``tests/conftest.py`` ``REDUCTIONS`` and ``reduced_cfg``: 2 layers
 (Zamba2 4), d_model <= 256, at most 4 experts, a sliding window of 16,
 Whisper's 2 encoder layers over 32 frames), where the JAX launcher applies
-one shape to every arch.  The JAX launcher's ``--tpu-env`` is left out: the
-port has no cost model of its own device yet.
+one shape to every arch.  The scheduler prices a batch with the paper's
+cost model (20 Jetson TX2s) by default; ``--h100-env`` prices it on the
+card the port runs on (``core.environment.h100_env``), and ``--tpu-env``
+on the JAX package's TPU v5e slice (a cost model only: the model still runs
+on ``--device``).
 
 Usage:
   python -m repro_torch.launch.serve --arch bloom-3b --epochs 5 --rate 10 \
@@ -25,7 +28,7 @@ import dataclasses
 
 from repro_torch.config import EncDecConfig, ModelConfig, MoEConfig, \
     get_arch
-from repro_torch.core.environment import paper_env
+from repro_torch.core.environment import h100_env, paper_env, tpu_env
 from repro_torch.core.policy import get_policy
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.runtime import EngineExecutor, EpochRuntime
@@ -94,6 +97,13 @@ def main(argv=None):
                          "per-epoch decisions override via the "
                          "multi-precision weight cache")
     ap.add_argument("--reduced", action="store_true")
+    env_flag = ap.add_mutually_exclusive_group()
+    env_flag.add_argument("--tpu-env", action="store_true",
+                          help="use the v5e cost model instead of the "
+                               "paper's")
+    env_flag.add_argument("--h100-env", action="store_true",
+                          help="use the H100 cost model instead of the "
+                               "paper's")
     ap.add_argument("--batch-capacity", type=int, default=8)
     ap.add_argument("--s-max", type=int, default=64)
     ap.add_argument("--n-max", type=int, default=32)
@@ -103,7 +113,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
-    env = paper_env(args.arch, args.quant)
+    env_fn = h100_env if args.h100_env else \
+        tpu_env if args.tpu_env else paper_env
+    env = env_fn(args.arch, args.quant)
 
     if args.reduced:
         cfg = reduced(cfg)

@@ -19,7 +19,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 
 Params = Any
 Cache = Any
@@ -43,19 +43,29 @@ class Model:
     # family without a slot-cache layout the block arena can virtualize
     decode_step_paged: Any = None
     loss_fn: Any = None                      # (params, batch) -> (loss, metrics)
+    input_specs: Any = None                  # (ShapeConfig) -> meta tensors
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
                   mask=None) -> torch.Tensor:
     """Mean CE over valid tokens; logits (B, S, Vp) with Vp >= vocab (the
-    padded vocab columns are masked out)."""
+    padded vocab columns are masked out).  Under a mesh the gold logit is
+    a one-hot masked sum, which each device takes over its own columns:
+    the same value (one term is nonzero), where DTensor's gather would
+    replicate the logits and their gradient."""
+    from repro_torch.utils.sharding import on_mesh
     logits = logits.to(torch.float32)
     Vp = logits.shape[-1]
     if Vp > vocab:
         pad = torch.arange(Vp, device=logits.device) >= vocab
         logits = logits.masked_fill(pad[None, None, :], -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if on_mesh(logits):
+        cols = torch.arange(Vp, device=logits.device)
+        gold = torch.sum(torch.where(cols == labels.long()[..., None],
+                                     logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     mask = torch.ones_like(nll) if mask is None else mask.to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -74,4 +84,25 @@ def build_model(cfg: ModelConfig) -> Model:
         init_cache=functools.partial(mod.init_cache, cfg),
         decode_step_paged=functools.partial(paged, cfg) if paged else None,
         loss_fn=functools.partial(mod.loss_fn, cfg),
+        input_specs=functools.partial(mod.input_specs, cfg),
     )
+
+
+def meta(shape, dtype) -> torch.Tensor:
+    """A meta-device tensor: a shape and a dtype, no storage (the
+    counterpart of ``jax.ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def token_specs(shape: ShapeConfig, n_text: int = 0):
+    """The token inputs of a step of ``shape``: (B, n_text or S) tokens
+    and, for train, labels; (B, 1) tokens for decode."""
+    B = shape.global_batch
+    n = n_text or shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": meta((B, n), torch.int32),
+                "labels": meta((B, n), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": meta((B, n), torch.int32)}
+    # decode: one new token against a cache of length S
+    return {"tokens": meta((B, 1), torch.int32)}

@@ -19,9 +19,15 @@ tensors in place (the JAX package returns new arrays): a decode step then
 costs no cache copy.  The recurrent, hybrid and audio families take
 ``decode_attention_plain`` on every device: the path the JAX package
 serves them on, with no kernel.
+
+Sharding is expressed through logical-axis constraints (``constrain``,
+``seq_shard``) at the JAX package's places; they return their input, with
+no op dispatched, outside a launcher-installed axis context (see
+utils/sharding.py).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -31,6 +37,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.quant.ptq import QTensor, dequantize
+from repro_torch.utils.sharding import (axis_divisor, constrain, head_local,
+                                        on_mesh, seq_gather, sharded_dim)
 
 Params = Dict[str, Any]
 
@@ -127,7 +135,7 @@ def apply_norm(kind: str, w: Optional[torch.Tensor], x: torch.Tensor,
         y = (xf - mu) * torch.rsqrt(var + eps)
     if w is not None:
         y = y * w.to(torch.float32)
-    return y.to(x.dtype)
+    return seq_gather(y.to(x.dtype))
 
 
 def rms_head_norm(x: torch.Tensor, w: torch.Tensor,
@@ -161,21 +169,65 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def split_heads(y: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n * dh) -> (B, S, n, dh).  Under a mesh a sharded last dim
+    first gathers unless ``n`` divides the model axis (a shard may not
+    split a head: DTensor cannot view it so); without one, the reshape."""
+    B, S = y.shape[:2]
+    if on_mesh(y) and n % axis_divisor("model"):
+        y = constrain(y, "batch", None, None)
+    return y.reshape(B, S, n, dh)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens`` (``table[tokens]``); under a
+    mesh through ``F.embedding``, whose sharded backward DTensor runs on
+    every version the port meets (its indexed-put backward of
+    ``table[tokens]`` fails on a vocab- and width-sharded table under
+    PyTorch 2.11)."""
+    if on_mesh(table):
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
+def merge_heads(y: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, dh) -> (B, S, n * dh), ``split_heads``' inverse.  Under a
+    mesh where ``n`` does not divide the model axis the merge runs on each
+    device's shard with the heads whole, so that no gradient reaches it
+    sharded across a head (DTensor cannot view one so); without one, the
+    reshape."""
+    B, S, n, dh = y.shape
+    if not on_mesh(y) or n % axis_divisor("model") == 0:
+        return y.reshape(B, S, n * dh)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim >= 2 else p
+          for p in y.placements]
+    y = y.redistribute(y.device_mesh, pl)
+    loc = y.to_local()
+    return DTensor.from_local(loc.reshape(loc.shape[0], loc.shape[1], n * dh),
+                              y.device_mesh, pl, run_check=False,
+                              shape=(B, S, n * dh),
+                              stride=(S * n * dh, n * dh, 1))
+
+
 def qkv_proj(p: Params, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, use_rope: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,nh,dh), k/v (B,S,nkv,dh)."""
     B, S, _ = x.shape
     dh = cfg.d_head
-    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, dh)
-    k = mm(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
-    v = mm(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    q = split_heads(mm(x, p["wq"]), cfg.n_heads, dh)
+    k = split_heads(mm(x, p["wk"]), cfg.n_kv_heads, dh)
+    v = split_heads(mm(x, p["wv"]), cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, None, None)
+    v = constrain(v, "batch", None, None, None)
     return q, k, v
 
 
@@ -185,8 +237,23 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Sq, nh, dh); k, v: (B, Sk, nkv, dh); mask broadcastable to
     (B, nkv, G, Sq, Sk) with True = attend.  Returns (B, Sq, nh, dh).
-    Logits and the weighted sum accumulate in float32; the probabilities
-    are rounded to v's type first, as in the JAX package."""
+    Under a mesh it runs on each device's batch and head shard
+    (``head_local``; heads sharded when the KV heads divide the model
+    axis), or, over a slot-sharded decode cache, on the sharded slots with
+    q's heads replicated."""
+    d = axis_divisor("model")
+    if d > 1 and sharded_dim(k, "model") == 1:
+        return _gqa_attention(constrain(q, "batch", None, None, None), k, v,
+                              mask)
+    return head_local(_gqa_attention, (q, k, v, mask), (2, 2, 2, None),
+                      k.shape[2] % d == 0)
+
+
+def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``gqa_attention``'s math.  Logits and the weighted sum accumulate in
+    float32; the probabilities are rounded to v's type first, as in the
+    JAX package."""
     B, Sq, nh, dh = q.shape
     nkv = k.shape[2]
     G = nh // nkv
@@ -213,6 +280,29 @@ def causal_mask(Sq: int, Sk: int, window: int = 0, q_offset: int = 0,
     return m[None, None, None]
 
 
+def seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-shard a (B, S, D) residual over the model axis (Megatron
+    sequence parallelism): the layer carry is what backward saves per
+    layer.  No-op when S is not divisible or no mesh context is
+    installed."""
+    return constrain(x, "batch", "model", None)
+
+
+def _attn_logits_shard(logits: torch.Tensor) -> torch.Tensor:
+    """Shard (B, H, Q, Sk) attention logits: prefer heads on 'model',
+    fall back to the key dim (sequence-parallel softmax) when the head
+    count doesn't divide (e.g. 56 heads on a 16-way axis)."""
+    d = axis_divisor("model")
+    if d <= 1:
+        return logits
+    H, Sk = logits.shape[1], logits.shape[3]
+    if H % d == 0:
+        return constrain(logits, "batch", "model", None, None)
+    if Sk % d == 0:
+        return constrain(logits, "batch", None, None, "model")
+    return constrain(logits, "batch", None, None, None)
+
+
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, window: int = 0,
                              chunk: int = 512,
@@ -228,11 +318,25 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                                                   q.device))
     k_r = (k.repeat_interleave(G, dim=2) if G > 1 else k).to(torch.float32)
     v_r = (v.repeat_interleave(G, dim=2) if G > 1 else v).to(torch.float32)
+    k_r = constrain(k_r, "batch", None, "model", None)
+    v_r = constrain(v_r, "batch", None, "model", None)
+    return head_local(functools.partial(_chunked_attention, window=window,
+                                        chunk=chunk, q_offset=q_offset),
+                      (q, k_r, v_r), (2, 2, 2), nh % axis_divisor("model") == 0)
+
+
+def _chunked_attention(q: torch.Tensor, k_r: torch.Tensor, v_r: torch.Tensor,
+                       window: int, chunk: int, q_offset: int) -> torch.Tensor:
+    """``chunked_causal_attention``'s loop over query chunks; k_r, v_r
+    (B, Sk, nh, dh) float32, repeated to q's heads."""
+    B, S, nh, dh = q.shape
+    Sk = k_r.shape[1]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     outs = []
     for i in range(S // chunk):
         qb = q[:, i * chunk:(i + 1) * chunk].to(torch.float32)
-        logits = torch.einsum("bqhd,bshd->bhqs", qb, k_r) * (1.0 / math.sqrt(dh))
+        logits = _attn_logits_shard(
+            torch.einsum("bqhd,bshd->bhqs", qb, k_r) * (1.0 / math.sqrt(dh)))
         qpos = (i * chunk + q_offset) + torch.arange(chunk, device=q.device)[:, None]
         m = kpos <= qpos
         if window > 0:
@@ -257,7 +361,8 @@ def attention_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = gqa_attention(q, k, v, None)
     else:
         out = chunked_causal_attention(q, k, v, window)
-    return mm(out.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(merge_heads(out), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor
@@ -265,9 +370,8 @@ def cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor
     """Cross-attention keys and values (B, F, nkv, dh) of encoder states
     enc (B, F, D), no rope (Whisper's decoder computes them once, at
     prefill)."""
-    B, F_, _ = enc.shape
-    k = mm(enc, p["wk"]).reshape(B, F_, cfg.n_kv_heads, cfg.d_head)
-    v = mm(enc, p["wv"]).reshape(B, F_, cfg.n_kv_heads, cfg.d_head)
+    k = split_heads(mm(enc, p["wk"]), cfg.n_kv_heads, cfg.d_head)
+    v = split_heads(mm(enc, p["wv"]), cfg.n_kv_heads, cfg.d_head)
     return k, v
 
 
@@ -276,9 +380,10 @@ def cross_attend(p: Params, cfg: ModelConfig, h: torch.Tensor,
     """Queries h (B, S, D) over every encoder position's ``cross_kv``
     (unmasked), through the output projection: (B, S, D)."""
     B, S, _ = h.shape
-    q = mm(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    q = split_heads(mm(h, p["wq"]), cfg.n_heads, cfg.d_head)
     out = gqa_attention(q, xk, xv, None)
-    return mm(out.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(merge_heads(out), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +421,15 @@ def cache_write(pairs, pos) -> None:
     slot = kops.decode_pos(pos, pairs[0][1].device).derive(
         ("slot", W), lambda p: (p % W).reshape(1).long())
     for leaf, val in pairs:
-        leaf.index_copy_(1, slot, val.to(leaf.dtype))
+        if sharded_dim(leaf, "model") == 1:
+            # a slot-sharded cache (launch/steps.cache_specs): a one-hot
+            # elementwise write, as in the JAX package, which each device
+            # does on its own slots (an indexed write would gather them)
+            hit = (torch.arange(W, device=val.device) == slot)
+            hit = hit.reshape((1, W) + (1,) * (leaf.ndim - 2))
+            leaf.copy_(torch.where(hit, val.to(leaf.dtype), leaf))
+        else:
+            leaf.index_copy_(1, slot, val.to(leaf.dtype))
 
 
 def _rope_positions(dp, B: int) -> torch.Tensor:
@@ -361,14 +474,15 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], cache_k, cache_v,
             dp, rope_theta=cfg.rope_theta, use_rope=use_rope)
         cache_write(((cache_k, k1[:, None]), (cache_v, v1[:, None])), dp)
-        return o[:, None]
+        return constrain(o[:, None], "batch", None, None)
     q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
     cache_write(((cache_k, k1), (cache_v, v1)), dp)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
     out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid)[:, None]
-    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -389,7 +503,8 @@ def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
     out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W))
-    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -417,7 +532,8 @@ def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
     out = gqa_attention(q, kd, vd, _valid_mask(n_valid, W))
-    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -468,7 +584,7 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
             pv[..., :nkv, :dh], table, dp, rope_theta=cfg.rope_theta)
         pk[..., :nkv, :dh].index_put_((page, off), k1.to(pk.dtype))
         pv[..., :nkv, :dh].index_put_((page, off), v1.to(pv.dtype))
-        return o[:, None]
+        return constrain(o[:, None], "batch", None, None)
     q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
     pk[..., :nkv, :dh].index_put_((page, off), k1[:, 0].to(pk.dtype))
     pv[..., :nkv, :dh].index_put_((page, off), v1[:, 0].to(pv.dtype))
@@ -482,7 +598,8 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
         kd = kc[idx].reshape(B, W, nkv, dh)
         vd = vc[idx].reshape(B, W, nkv, dh)
         out = gqa_attention(q, kd, vd, _valid_mask(n_valid, W))
-    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def _page_index(dp, table: torch.Tensor, bt: int, B: int):
@@ -520,7 +637,8 @@ def _decode_attention_paged_kv8(p: Params, cfg: ModelConfig,
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
     out = gqa_attention(q, views["k"], views["v"], _valid_mask(n_valid, W))
-    return mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
+    return constrain(out, "batch", None, None)
 
 
 def prefill_slots(x: torch.Tensor, W: int,
@@ -530,14 +648,20 @@ def prefill_slots(x: torch.Tensor, W: int,
     other slots are zero.  ``out``: a (B, W, ...) leaf to fill in place
     (zeroed first), for a decode loop whose cache keeps its address."""
     B, S = x.shape[:2]
+    start = max(0, S - W)
     if out is None:
-        out = torch.zeros((B, W) + tuple(x.shape[2:]), dtype=x.dtype,
-                          device=x.device)
+        # out of place (a sharded x then gives a sharded leaf): slot j
+        # holds position start + (j - start) % W, zeros past S
+        if S >= W:
+            out = x[:, start + (torch.arange(W, device=x.device) - start) % W]
+        else:
+            out = torch.cat([x, x.new_zeros((B, W - S) + tuple(x.shape[2:]))],
+                            dim=1)
     else:
         out.zero_()
-    start = max(0, S - W)
-    out[:, torch.arange(start, S, device=x.device) % W] = x[:, start:]
-    return out
+        out[:, torch.arange(start, S, device=x.device) % W] = x[:, start:]
+    # slot caches shard over batch + slots (see launch/steps.cache_specs)
+    return constrain(out, "batch", "model", *([None] * (out.ndim - 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +677,8 @@ def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(mm(x, p["w1"]), approximate="tanh")
     else:
         h = F.relu(mm(x, p["w1"]))
-    return mm(h, p["w2"])
+    h = constrain(h, "batch", None, "model")
+    return constrain(mm(h, p["w2"]), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +728,13 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     B, S, D = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     T = B * S
-    xt = x.reshape(T, D)
+    expert_parallel = E % axis_divisor("model") == 0
+    # Non-expert-parallel (E doesn't divide the axis): token dims sharded
+    # over the batch axes throughout; the expert-parallel path must not get
+    # these (they fight the E-sharded dispatch), as in the JAX package.
+    tok = (lambda a: constrain(a, "batch", *([None] * (a.ndim - 1)))) \
+        if not expert_parallel else (lambda a: a)
+    xt = tok(x.reshape(T, D))
     gate_logits = mm(xt, p["router"]).to(torch.float32)         # (T, E)
     probs = torch.softmax(gate_logits, dim=-1)
     C = max(int(math.ceil(T * K / E * capacity_factor)), 1)
@@ -616,10 +747,14 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, K) \
         .reshape(-1)
-    buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=x.device)
+    buf = xt.new_zeros((E, C + 1, D))
     buf.index_put_((flat_idx, torch.where(keep, pos, C).long()), xt[tok_ids])
     buf = buf[:, :C]
     safe_pos = torch.where(keep, pos, C - 1).long()
+    # two MoE layouts, as the param rules of launch/steps place the
+    # experts: expert parallel (E sharded), or per-expert tensor parallel
+    buf = constrain(buf, "model", None, None) if expert_parallel \
+        else constrain(buf, None, "batch", None)
 
     w1 = maybe_dequant(p["w1"])
     if cfg.act == "silu":
@@ -627,15 +762,19 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                                                    maybe_dequant(p["w3"]))
     else:
         h = F.gelu(torch.bmm(buf, w1), approximate="tanh")
+    h = constrain(h, "model", None, None) if expert_parallel \
+        else constrain(h, None, "batch", "model")
     eout = torch.bmm(h, maybe_dequant(p["w2"]))                 # (E, C, D)
+    eout = constrain(eout, "model", None, None) if expert_parallel \
+        else constrain(eout, None, "batch", None)
 
     gathered = eout[flat_idx, safe_pos]                         # (T*K, D)
-    gathered = torch.where(keep[:, None], gathered,
-                           torch.zeros((), dtype=gathered.dtype,
-                                       device=x.device))
+    gathered = tok(torch.where(keep[:, None], gathered,
+                               torch.zeros((), dtype=gathered.dtype,
+                                           device=x.device)))
     w = gate_w.reshape(-1)[:, None].to(gathered.dtype)
     contrib = (gathered * w).reshape(T, K, D)
     out = torch.zeros((T, D), dtype=xt.dtype, device=x.device)
     for k in range(K):
         out = out + contrib[:, k]
-    return out.reshape(B, S, D), aux
+    return tok(out).reshape(B, S, D), aux

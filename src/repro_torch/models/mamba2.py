@@ -15,6 +15,7 @@ addresses.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common
+from repro_torch.utils.sharding import axis_divisor, constrain, head_local
 
 Params = Dict[str, Any]
 
@@ -191,12 +193,18 @@ def block_forward(cfg: ModelConfig, p: Params, u: torch.Tensor,
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
     xBC, conv_state = _causal_conv(p["conv_w"], xBC)
     x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
-    x = x.reshape(B, T, H, P)
+    x = constrain(common.split_heads(x, H, P), "batch", None, "model", None)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
-    y, final = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm.chunk)
+    # under a mesh the scan runs on each device's batch and head shard
+    y, final = head_local(functools.partial(ssd_chunked, chunk=cfg.ssm.chunk),
+                          (x, dt, A, Bm, Cm), (2, 2, 0, None, None),
+                          H % axis_divisor("model") == 0,
+                          batched=(True, True, False, True, True),
+                          out_head_dims=(2, 1))
     y = y + x * p["D"][None, None, :, None].to(x.dtype)
-    out = _gate(cfg, p, y.reshape(B, T, d_inner), z)
+    out = constrain(_gate(cfg, p, y.reshape(B, T, d_inner), z),
+                    "batch", None, None)
     state = {"ssm": final, "conv": conv_state} if collect_state else None
     return out, state
 
@@ -219,7 +227,7 @@ def block_decode(cfg: ModelConfig, p: Params, u: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", ssm, Cm.to(torch.float32))
     y = y + x * p["D"][None, :, None]
     y = y.reshape(B, 1, d_inner).to(u.dtype)
-    out = _gate(cfg, p, y, z)
+    out = constrain(_gate(cfg, p, y, z), "batch", None, None)
     state["ssm"].copy_(ssm)
     state["conv"].copy_(conv_state)
     return out

@@ -19,11 +19,12 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.quant.ptq import QTensor
 from repro_torch.utils.remat import maybe_remat
+from repro_torch.utils.sharding import constrain
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -105,10 +106,10 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """The token embeddings (B, S, D); a VLM prepends the stub vision
     frontend's patch embeddings (B, n_img, D), already projected to
     d_model."""
-    x = _table(params)[batch["tokens"]]
+    x = common.embed(_table(params), batch["tokens"])
     if cfg.family == "vlm":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def _layers(cfg: ModelConfig, params: Params, batch, on_kv=None,
@@ -126,13 +127,14 @@ def _layers(cfg: ModelConfig, params: Params, batch, on_kv=None,
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
         att = common.chunked_causal_attention(q, k, v, cfg.sliding_window)
-        x = x + common.mm(att.reshape(B, S, cfg.n_heads * cfg.d_head),
-                          lp["attn"]["wo"])
+        att = common.mm(common.merge_heads(att),
+                        lp["attn"]["wo"])
+        x = x + constrain(att, "batch", None, None)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         out, a = _ffn(cfg, lp, h, with_aux)
         if on_kv is not None:
             on_kv(k, v)
-        return x + out, a
+        return common.seq_shard(x + out), a
 
     body = layer if on_kv is not None else maybe_remat(layer)
     aux = None
@@ -206,7 +208,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     ``cache`` in place and returns (logits, cache).  ``use_kernel`` routes
     attention through the decode kernel; off, it takes the plain masked
     softmax, on CPU tensors only."""
-    x = _table(params)[tokens]
+    x = constrain(common.embed(_table(params), tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
     for lp, layer_cache in zip(params["layers"], cache):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
@@ -228,7 +230,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
     int32 block table, shared by every layer (one page id covers all L
     layers of a row's block).  ``pos`` as for ``decode_step``.  Updates
     ``pages`` in place and returns (logits, pages)."""
-    x = _table(params)[tokens]
+    x = constrain(common.embed(_table(params), tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
     for l, lp in enumerate(params["layers"]):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
@@ -239,3 +241,18 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
         x = x + _ffn(cfg, lp, h)[0]
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], pages
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The step's inputs as meta tensors (the dry run's; no allocation):
+    a VLM's text is the sequence less its image positions, whose patch
+    embeddings come beside it."""
+    from repro_torch.models.api import meta, token_specs
+    n_img = cfg.vlm.n_img_tokens if cfg.family == "vlm" else 0
+    if shape.kind == "decode":
+        return token_specs(shape)
+    batch = token_specs(shape, shape.seq_len - n_img)
+    if n_img:
+        batch["patch_embeds"] = meta(
+            (shape.global_batch, n_img, cfg.d_model), common.torch_dtype(cfg))
+    return batch

@@ -25,6 +25,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.utils.remat import maybe_remat
+from repro_torch.utils.sharding import constrain
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -67,7 +68,8 @@ def encode(cfg: ModelConfig, params: Params,
     """The encoder over the frame embeddings (B, F, D): bidirectional
     attention over every frame; returns (B, F, D).  Each layer goes
     through ``maybe_remat``."""
-    x = audio_embeds.to(common.torch_dtype(cfg))
+    x = constrain(audio_embeds.to(common.torch_dtype(cfg)), "batch", None,
+                  None)
     B, F_, _ = x.shape
     positions = _positions(B, F_, x.device)
 
@@ -94,7 +96,7 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``on_layer(k, v, xk, xv)`` sees each layer's self-attention k/v (B, S,
     nkv, dh) and cross-attention keys and values; without it each layer
     goes through ``maybe_remat``."""
-    x = params["embed"][tokens]
+    x = constrain(common.embed(params["embed"], tokens), "batch", None, None)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
 
@@ -102,15 +104,16 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = common.qkv_proj(lp["attn"], cfg, h, positions)
         att = common.chunked_causal_attention(q, k, v)
-        x = x + common.mm(att.reshape(B, S, cfg.n_heads * cfg.d_head),
-                          lp["attn"]["wo"])
+        att = common.mm(common.merge_heads(att),
+                        lp["attn"]["wo"])
+        x = x + constrain(att, "batch", None, None)
         h = common.apply_norm(cfg.norm, lp["norm2"], x)
         xk, xv = common.cross_kv(lp["xattn"], cfg, enc)
         x = x + common.cross_attend(lp["xattn"], cfg, h, xk, xv)
         h = common.apply_norm(cfg.norm, lp["norm3"], x)
         if on_layer is not None:
             on_layer(k, v, xk, xv)
-        return x + common.ffn_apply(lp["ffn"], cfg, h)
+        return common.seq_shard(x + common.ffn_apply(lp["ffn"], cfg, h))
 
     body = layer if on_layer is not None else maybe_remat(layer)
     for lp in params["dec_layers"]:
@@ -172,7 +175,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     tensor or a ``DecodePos``): the self-attention caches are updated in
     place; the cross-attention keys and values are read only.  Returns
     (logits (B, Vp), cache)."""
-    x = params["embed"][tokens]
+    x = constrain(common.embed(params["embed"], tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
     for lp, c in zip(params["dec_layers"], cache):
         h = common.apply_norm(cfg.norm, lp["norm1"], x)
@@ -184,3 +187,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = x + common.ffn_apply(lp["ffn"], cfg, h)
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(params, x)[:, 0], cache
+
+
+def input_specs(cfg: ModelConfig, shape):
+    """The step's inputs as meta tensors (the dry run's; no allocation):
+    train and prefill take the encoder's (B, F, D) audio embeddings
+    beside the tokens."""
+    from repro_torch.models.api import meta, token_specs
+    batch = token_specs(shape)
+    if shape.kind != "decode":
+        batch = {"audio_embeds": meta(
+            (shape.global_batch, cfg.encdec.n_audio_frames, cfg.d_model),
+            common.torch_dtype(cfg)), **batch}
+    return batch

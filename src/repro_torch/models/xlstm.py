@@ -37,7 +37,9 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.mamba2 import _causal_conv
-from repro_torch.utils.remat import maybe_remat
+from repro_torch.utils.remat import maybe_remat, remat_enabled
+from repro_torch.utils.sharding import (axis_divisor, constrain, head_local,
+                                        local_elementwise)
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -87,11 +89,12 @@ def _mlstm_qkvif(cfg: ModelConfig, p: Params, x_norm: torch.Tensor,
     B, T, _ = x_norm.shape
     x_in, z = torch.chunk(x_norm @ p["w_up"], 2, dim=-1)
     x_c, conv_state = _causal_conv(p["conv_w"], x_in, conv_state)
-    q = (x_c @ p["wq"]).reshape(B, T, nh, dh) * (1.0 / math.sqrt(dh))
-    k = (x_c @ p["wk"]).reshape(B, T, nh, dh)
-    v = (x_in @ p["wv"]).reshape(B, T, nh, dh)
+    q = common.split_heads(x_c @ p["wq"], nh, dh) * (1.0 / math.sqrt(dh))
+    k = common.split_heads(x_c @ p["wk"], nh, dh)
+    v = common.split_heads(x_in @ p["wv"], nh, dh)
     ilog = (x_c @ p["wi"]).to(torch.float32) + p["bi"]
-    flog = F.logsigmoid((x_c @ p["wf"]).to(torch.float32) + p["bf"])
+    flog = local_elementwise(F.logsigmoid,
+                             (x_c @ p["wf"]).to(torch.float32) + p["bf"])
     return q, k, v, ilog, flog, z, conv_state
 
 
@@ -141,6 +144,13 @@ def mlstm_chunked(q, k, v, ilog, flog, chunk: int, state=None):
     if state is None:
         state = _zero_mlstm_state(B, nh, dh, q.device)
     C, n, m = state["C"], state["n"], state["m"]
+    # chunk-major reads with the chunk axis replicated: the residual
+    # arrives sequence-sharded over 'model', and a sharded chunk axis
+    # would cost a resharding collective per chunk per layer
+    qc, kc, vc, D, m_intra, b, ic, Fs, w_state, m_state_intra = (
+        constrain(a, "batch", *([None] * (a.ndim - 1)))
+        for a in (qc, kc, vc, D, m_intra, b, ic, Fs, w_state, m_state_intra))
+    shard_c = remat_enabled()
     hs = []
     for c in range(nc):
         qx, kx, vx = qc[:, c], kc[:, c], vc[:, c]
@@ -163,6 +173,10 @@ def mlstm_chunked(q, k, v, ilog, flog, chunk: int, state=None):
             + torch.einsum("bhsd,bhse->bhde", wsn[..., None] * kx, vx)
         n = n * decay[..., None] + torch.einsum("bhs,bhsd->bhd", wsn, kx)
         m = m_next
+        if shard_c:
+            # train only: backward saves every chunk's carry, so C is
+            # sharded to keep them in memory; prefill keeps C replicated
+            C = constrain(C, "batch", None, "model", None)
     h = torch.stack(hs, dim=1)                        # (B, nc, nh, Q, dh)
     h = h.transpose(2, 3).reshape(B, T, nh, dh)[:, :T0]
     return h.to(q.dtype), {"C": C, "n": n, "m": m}
@@ -200,12 +214,10 @@ def mlstm_reference(q, k, v, ilog, flog, state=None):
 
 def _mlstm_out(cfg, p, x, h, z):
     """x + (rmsnorm(h * silu(z)) @ w_down)."""
-    d_in, _, _ = _mlstm_dims(cfg)
-    B, T = h.shape[:2]
-    h = h.reshape(B, T, d_in)
+    h = common.merge_heads(h)
     h = common.apply_norm("rmsnorm", p["gn"],
                           h * F.silu(z.to(torch.float32)).to(h.dtype))
-    return x + h @ p["w_down"]
+    return x + constrain(h @ p["w_down"], "batch", None, None)
 
 
 def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -215,7 +227,7 @@ def mlstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v, ilog, flog, z, conv_state = _mlstm_qkvif(cfg, p, h_in)
     h, st = mlstm_chunked(q, k, v, ilog, flog, chunk=MLSTM_CHUNK)
     state = {**st, "conv": conv_state} if collect_state else None
-    return _mlstm_out(cfg, p, x, h, z), state
+    return common.seq_shard(_mlstm_out(cfg, p, x, h, z)), state
 
 
 def mlstm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -227,9 +239,12 @@ def mlstm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v, ilog, flog, z, conv_state = _mlstm_qkvif(cfg, p, h_in,
                                                       state["conv"])
     f32 = torch.float32
-    h, C, n, m = _mlstm_step(state["C"], state["n"], state["m"],
-                             q[:, 0].to(f32), k[:, 0].to(f32),
-                             v[:, 0].to(f32), ilog[:, 0], flog[:, 0])
+    # under a mesh the step runs on each device's batch and head shard
+    h, C, n, m = head_local(
+        _mlstm_step, (state["C"], state["n"], state["m"], q[:, 0].to(f32),
+                      k[:, 0].to(f32), v[:, 0].to(f32), ilog[:, 0],
+                      flog[:, 0]), (1,) * 8,
+        cfg.n_heads % axis_divisor("model") == 0, out_head_dims=(1,) * 4)
     out = _mlstm_out(cfg, p, x, h[:, None].to(q.dtype), z)
     for name, new in (("C", C), ("n", n), ("m", m), ("conv", conv_state)):
         state[name].copy_(new)
@@ -275,7 +290,7 @@ def _slstm_cell_step(p: Params, nh: int, dh: int, xw: torch.Tensor, carry):
     gates = gates.to(torch.float32) + p["b_gates"].reshape(4, 1, nh, dh)
     zt = torch.tanh(gates[0])
     it = gates[1]                                    # log-space input gate
-    ft = F.logsigmoid(gates[2])
+    ft = local_elementwise(F.logsigmoid, gates[2])
     ot = torch.sigmoid(gates[3])
     # per-head shared stabilizer (max over the head's dims)
     m_new = torch.maximum(torch.amax(ft, dim=-1) + m, torch.amax(it, dim=-1))
@@ -306,19 +321,28 @@ def slstm_block(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None):
     dh = dm // nh
     B, T, _ = x.shape
     h_in = common.apply_norm(cfg.norm, p["norm"], x)
-    xw = h_in @ p["w_gates"]                          # (B, T, 4 dm)
+    # (B, T, 4 dm); under a mesh gathered whole (the cell splits it into
+    # gates and heads, which a model-axis shard would cut across)
+    xw = constrain(h_in @ p["w_gates"], "batch", None, None)
     if state is None:
         state = _slstm_zero_state(cfg, B, x.dtype, x.device)
+    # the cell's recurrent weights and biases, gathered whole once for the
+    # loop under a mesh (FSDP stores them sharded; a step reshapes them
+    # into gates and heads)
+    cell = {"r_gates": constrain(p["r_gates"], None, None, None, None),
+            "b_gates": constrain(p["b_gates"], None)}
     hs = []
     for t in range(T):
-        state = _slstm_cell_step(p, nh, dh, xw[:, t], state)
+        state = _slstm_cell_step(cell, nh, dh, xw[:, t], state)
         hs.append(state[2])
     h = torch.stack(hs, dim=1).reshape(B, T, dm)
     x = x + common.apply_norm("rmsnorm", p["gn"], h)
     # gated FFN sub-block
     h2 = common.apply_norm(cfg.norm, p["norm2"], x)
-    ff = F.silu(h2 @ p["ffn_w1"]) * (h2 @ p["ffn_w3"])
-    return x + ff @ p["ffn_w2"], state
+    ff = constrain(F.silu(h2 @ p["ffn_w1"]) * (h2 @ p["ffn_w3"]),
+                   "batch", None, "model")
+    ff = constrain(ff @ p["ffn_w2"], "batch", None, None)
+    return common.seq_shard(x + ff), state
 
 
 def slstm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -381,8 +405,7 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
     package also wraps each group (its mLSTM layers and its sLSTM block)
     around them; the port does not nest checkpoints (a nested non-reentrant
     checkpoint failed its recompute check under PyTorch 2.11 on the card),
-    which recomputes the same values.  The JAX package's sharding hint on C
-    under remat does nothing on one device and is left out."""
+    which recomputes the same values."""
     wrap = maybe_remat if on_state is None else (lambda body: body)
 
     def m_layer(x, lp):
@@ -405,8 +428,8 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Logits (B, S, Vp) of the whole sequence."""
-    x = _run_stack(cfg, params, params["embed"][batch["tokens"]])
-    return common.mm(x, params["lm_head"])
+    x = constrain(common.embed(params["embed"], batch["tokens"]), "batch", None, None)
+    return common.mm(_run_stack(cfg, params, x), params["lm_head"])
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch):
@@ -432,7 +455,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0,
             st = dst
         cache.append(st)
 
-    x = _run_stack(cfg, params, params["embed"][batch["tokens"]], keep)
+    x = constrain(common.embed(params["embed"], batch["tokens"]), "batch", None, None)
+    x = _run_stack(cfg, params, x, keep)
     return common.mm(x[:, -1:], params["lm_head"])[:, 0], cache
 
 
@@ -441,7 +465,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     """One decode iteration (``pos`` does not apply: no block reads a
     position).  Updates ``cache`` in place; returns (logits (B, Vp),
     cache)."""
-    x = params["embed"][tokens]
+    x = constrain(common.embed(params["embed"], tokens), "batch", None, None)
     for (kind, lp), st in zip(_blocks(cfg, params), cache):
         if kind == "m":
             x = mlstm_decode(cfg, lp, x, st)
@@ -469,3 +493,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                           _slstm_zero_state(cfg, batch, dt, device)))
         cache.append(st)
     return cache
+
+
+def input_specs(cfg: ModelConfig, shape):
+    """The step's inputs as meta tensors (the dry run's; no allocation)."""
+    from repro_torch.models.api import token_specs
+    return token_specs(shape)

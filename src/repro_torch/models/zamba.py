@@ -30,6 +30,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common, mamba2
 from repro_torch.utils.remat import maybe_remat
+from repro_torch.utils.sharding import constrain
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -76,10 +77,11 @@ def _shared_fwd(cfg: ModelConfig, sp: Params, x: torch.Tensor,
     h = common.apply_norm(cfg.norm, sp["norm1"], x)
     q, k, v = common.qkv_proj(sp["attn"], cfg, h, positions)
     att = common.chunked_causal_attention(q, k, v, ATTN_WINDOW)
-    x = x + common.mm(att.reshape(B, S, cfg.n_heads * cfg.d_head),
-                      sp["attn"]["wo"])
+    att = common.mm(common.merge_heads(att),
+                    sp["attn"]["wo"])
+    x = x + constrain(att, "batch", None, None)
     h = common.apply_norm(cfg.norm, sp["norm2"], x)
-    x = x + common.ffn_apply(sp["ffn"], cfg, h)
+    x = common.seq_shard(x + common.ffn_apply(sp["ffn"], cfg, h))
     if on_kv is not None:
         on_kv(k, v)
     return x
@@ -108,7 +110,7 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                                        collect_state=on_state is not None)
         if on_state is not None:
             on_state(st)
-        return x + out
+        return common.seq_shard(x + out)
 
     def shared(x):
         return _shared_fwd(cfg, params["shared"], x, positions, on_kv)
@@ -125,8 +127,8 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Logits (B, S, Vp) of the whole sequence."""
-    x = _run_stack(cfg, params, params["embed"][batch["tokens"]])
-    return common.mm(x, params["lm_head"])
+    x = constrain(common.embed(params["embed"], batch["tokens"]), "batch", None, None)
+    return common.mm(_run_stack(cfg, params, x), params["lm_head"])
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch):
@@ -163,7 +165,7 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0,
     ``cache_len`` sets the attention caches' capacity (0: the input
     length; at most ``ATTN_WINDOW``); ``out``: a cache of that capacity to
     fill in place and return."""
-    x = params["embed"][batch["tokens"]]
+    x = constrain(common.embed(params["embed"], batch["tokens"]), "batch", None, None)
     W = cache_capacity(cfg, cache_len or x.shape[1])
     cache: Cache = []
 
@@ -192,7 +194,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     """One decode iteration: tokens (B, 1) at position ``pos`` (a host
     int, an int32 0-d tensor or a ``DecodePos``).  Updates ``cache`` in
     place and returns (logits (B, Vp), cache)."""
-    x = params["embed"][tokens]
+    x = constrain(common.embed(params["embed"], tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
     sp = params["shared"]
     i = 0
@@ -216,3 +218,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         i += 1
     x = common.apply_norm(cfg.norm, params["final_norm"], x)
     return common.mm(x, params["lm_head"])[:, 0], cache
+
+
+def input_specs(cfg: ModelConfig, shape):
+    """The step's inputs as meta tensors (the dry run's; no allocation)."""
+    from repro_torch.models.api import token_specs
+    return token_specs(shape)
