@@ -41,7 +41,7 @@ class DeviceLoop:
     CUDA tensors at the addresses the step graph reads and writes."""
 
     def __init__(self, graph, t, t_end, lengths, caps, done,
-                 launches: Dict[str, int], capture_ms: float = 0.0):
+                 launches: Dict[str, int]):
         for name, x, dtype, shape in (
                 ("t", t, torch.int32, ()), ("t_end", t_end, torch.int32, ()),
                 ("lengths", lengths, torch.int64, lengths.shape[:1]),
@@ -54,7 +54,6 @@ class DeviceLoop:
                                  f"{x.dtype} {tuple(x.shape)} on {x.device}")
         self.graph = graph
         self.launches = dict(launches)
-        self.capture_ms = capture_ms
         self.iters = torch.zeros((), dtype=torch.int64, device=t.device)
         self.counted = 0
         self._lib = _build.library("decode_loop")

@@ -15,7 +15,9 @@ one shape to every arch.  The scheduler prices a batch with the paper's
 cost model (20 Jetson TX2s) by default; ``--h100-env`` prices it on the
 card the port runs on (``core.environment.h100_env``), and ``--tpu-env``
 on the JAX package's TPU v5e slice (a cost model only: the model still runs
-on ``--device``).
+on ``--device``).  The last line is the tracer's summary of the run
+(``serving.trace.report``): prefill ms, decode-step ms, the card's idle
+share, the captures with their ms, and the last SM clock and power.
 
 Usage:
   python -m repro_torch.launch.serve --arch bloom-3b --epochs 5 --rate 10 \
@@ -25,11 +27,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 from repro_torch.config import EncDecConfig, ModelConfig, MoEConfig, \
     get_arch
 from repro_torch.core.environment import h100_env, paper_env, tpu_env
 from repro_torch.core.policy import get_policy
+from repro_torch.serving import trace as program_trace
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.runtime import EngineExecutor, EpochRuntime
 
@@ -111,6 +115,7 @@ def main(argv=None):
                     help="torch device; the kernels run on cuda, the CPU "
                          "runs their plain versions")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     cfg = get_arch(args.arch)
     env_fn = h100_env if args.h100_env else \
@@ -133,6 +138,7 @@ def main(argv=None):
           f"throughput={trace.throughput:.2f} req/s "
           f"batches={trace.batches} "
           f"methods={trace.served_by_method}")
+    print(program_trace.report(since=t_start))
     return 0
 
 

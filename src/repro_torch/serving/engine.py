@@ -57,6 +57,16 @@ matmuls do not route through ``common.mm``'s kernels there either), and
 decode with no kernel: ``use_kernel`` does not apply to them (the JAX
 package's engine refuses it for them).
 
+Every data-plane entry (``generate``, ``start_chunked``,
+``refill_chunked``, ``generate_chunked``, ``poll_chunked``) is a root span
+of the tracer (``serving.trace``); a capture is a span ``engine.capture``
+with a child ``engine.capture.warm_up``.  On CUDA the work the host
+enqueues without waiting is timed on the device: ``dev.prefill`` (the
+host->device copy, the prefill and its scatter or splice),
+``dev.decode`` (the device loop's launch) and ``dev.read_back`` (the one
+device->host copy), read only after that copy; each read-back counts the
+loop iterations it found, and each prefill the rows it admitted.
+
 A step that is not live changes no cache leaf.  The step itself writes
 the cache whether live or not (a recurrent state has no slot that no live
 row reads, so a dead step would advance it), so the loops keep dead steps
@@ -68,7 +78,6 @@ before a capture puts every leaf back from a copy.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -82,6 +91,7 @@ from repro_torch.models.api import Model, build_model
 from repro_torch.models.common import torch_dtype
 from repro_torch.quant.ptq import QTensor, dequantize_tree, quantize_tree, \
     with_act_bits
+from repro_torch.serving import trace
 from repro_torch.serving.kv_arena import TRASH_PAGE, ZERO_PAGE, BlockTable, \
     KVArena
 
@@ -233,6 +243,7 @@ class ServingEngine:
         self.lease_topups = 0                # pages leased by top-ups
         self._gen: Optional[DecodeState] = None  # generate's decode loop
         self._graph_pool = None              # one pool for all its graphs
+        self._last_loop = None               # keeps the pool in use
         self.captures: list = []             # one record per captured step
 
     # -- multi-precision weight cache ---------------------------------------
@@ -508,7 +519,8 @@ class ServingEngine:
         loop = state.graphs.get(state.bits)
         if loop is None:
             loop = state.graphs[state.bits] = self._capture(state)
-        loop.launch()
+        with trace.device("dev.decode", self.device):
+            loop.launch()
 
     def _capture(self, state) -> DeviceLoop:
         """Capture one step of ``state`` at its precision as a CUDA graph
@@ -518,23 +530,28 @@ class ServingEngine:
         was given; the capture itself launches nothing, so the launches the
         wrappers count while it runs are taken back and kept as the loop's
         own (the warm-up's stay counted).  A failed capture raises: there
-        is no eager fallback on CUDA."""
-        step = self._model_step(state)
-        self._warm_up(state, step)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = kops.launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            self._step(state, step)
-        launches = {k: v - before[k] for k, v in kops.launch_counts().items()
-                    if v != before[k]}
-        kops.add_launch_counts(launches, -1)
-        loop = DeviceLoop(graph, state.t_dev, state.t_end, state.lengths,
-                          state.caps, state.done, launches)
-        loop.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.captures.append(dict(bits=state.bits, ms=loop.capture_ms,
+        is no eager fallback on CUDA.  The engine holds the loop it
+        captured last until the next capture succeeds: a pool whose graphs
+        are all freed (every cohort drained) cannot take another capture.
+        ``captures`` records the span's host ms, warm-up included."""
+        with trace.span("engine.capture") as timing:
+            step = self._model_step(state)
+            with trace.span("engine.capture.warm_up"):
+                self._warm_up(state, step)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = kops.launch_counts()
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                self._step(state, step)
+            launches = {k: v - before[k]
+                        for k, v in kops.launch_counts().items()
+                        if v != before[k]}
+            kops.add_launch_counts(launches, -1)
+            loop = DeviceLoop(graph, state.t_dev, state.t_end, state.lengths,
+                              state.caps, state.done, launches)
+        self._last_loop = loop
+        self.captures.append(dict(bits=state.bits, ms=timing.ms,
                                   paged=isinstance(state, PagedDecodeState)))
         return loop
 
@@ -547,10 +564,15 @@ class ServingEngine:
         loops = list(state.graphs.values())
         blocks = [c.to(torch.int64) for c in cols] + [
             loop.iters.reshape(1, 1).expand(B, 1) for loop in loops]
-        res = torch.cat(blocks, 1).cpu().numpy()      # the one D2H copy
+        with trace.read_back(self.device):
+            res = torch.cat(blocks, 1).cpu().numpy()  # the one D2H copy
         n = res.shape[1] - len(loops)
+        iters = 0
         for i, loop in enumerate(loops):
+            iters += int(res[0, n + i]) - loop.counted
             loop.count(res[0, n + i])
+        if loops:
+            trace.count("iters", iters)
         return res[:, :n].astype(np.int32)
 
     def _generate_state(self, bits, cur, caps) -> DecodeState:
@@ -569,6 +591,7 @@ class ServingEngine:
         return st
 
     @torch.no_grad()
+    @trace.traced("engine.generate")
     def generate(self, prompts: Sequence[Sequence[int]],
                  n_tokens: Optional[Sequence[int]] = None,
                  greedy: bool = True,
@@ -582,15 +605,17 @@ class ServingEngine:
         params, host, caps, nb = self._prepare(prompts, n_tokens, quant_bits)
         bits = self.default_bits if quant_bits is None \
             else self._canon_bits(quant_bits)
-        dev = host.to(self.device)                    # the one H2D copy
-        tokens, caps_d = dev[:, :self.s_max], dev[:, self.s_max]
-        if self._gen is None:
-            cur, cache = self._prefill(params, tokens)
-            self._gen = DecodeState(cache=cache, caps_host=caps,
-                                    **self._emission(cur, caps_d))
-        else:
-            cur, _ = self._prefill(params, tokens, out=self._gen.cache)
-        state = self._generate_state(bits, cur, caps_d)
+        trace.count("rows", nb)
+        with trace.device("dev.prefill", self.device):
+            dev = host.to(self.device)                # the one H2D copy
+            tokens, caps_d = dev[:, :self.s_max], dev[:, self.s_max]
+            if self._gen is None:
+                cur, cache = self._prefill(params, tokens)
+                self._gen = DecodeState(cache=cache, caps_host=caps,
+                                        **self._emission(cur, caps_d))
+            else:
+                cur, _ = self._prefill(params, tokens, out=self._gen.cache)
+            state = self._generate_state(bits, cur, caps_d)
         self._advance(state, min(self.n_max, int(caps.max(initial=0))))
         res = self._read_back(state, [state.out, state.lengths[:, None]])
         return GenerationResult(tokens=res[:nb, :-1], lengths=res[:nb, -1],
@@ -749,6 +774,7 @@ class ServingEngine:
                                                     for d in vals.shape[2:])
                 pleaf[l][corner] = vals.to(pleaf.dtype)
 
+    @trace.traced("engine.start_chunked")
     def start_chunked(self, prompts: Sequence[Sequence[int]],
                       n_tokens: Optional[Sequence[int]] = None,
                       quant_bits: Optional[int] = None,
@@ -793,18 +819,23 @@ class ServingEngine:
                     ids[b * nb + np.asarray(blocks)] = leases
                     lease_end[b], lease_last[b] = le, ll
             cols.append(ids)
-        dev = self._ship(*cols)                       # the one H2D copy
-        tokens, caps_d = dev[0][:, :self.s_max], dev[0][:, self.s_max]
-        cur, cache = self._prefill(params, tokens)
-        emit = dict(bits=bits, caps_host=caps,
-                    **self._emission(cur, caps_d, dev[1], dev[2][:, 0]))
+        trace.count("rows", len(prompts))
+        with trace.device("dev.prefill", self.device):
+            dev = self._ship(*cols)                   # the one H2D copy
+            tokens, caps_d = dev[0][:, :self.s_max], dev[0][:, self.s_max]
+            cur, cache = self._prefill(params, tokens)
+            emit = dict(bits=bits, caps_host=caps,
+                        **self._emission(cur, caps_d, dev[1], dev[2][:, 0]))
+            if arena is not None:
+                self._page_scatter(arena.buffers(), cache,
+                                   dev[3].reshape(-1))
         if arena is None:
             return DecodeState(cache=cache, **emit)
-        self._page_scatter(arena.buffers(), cache, dev[3].reshape(-1))
         return PagedDecodeState(arena=arena, table=table, lease_end=lease_end,
                                 lease_last=lease_last, **emit)
 
     @torch.no_grad()
+    @trace.traced("engine.generate_chunked")
     def generate_chunked(self, state, k: int):
         """Advance a cohort by at most ``k`` decode steps, to at most
         ``n_max`` (no host transfer inside), and return the re-entrant
@@ -843,6 +874,7 @@ class ServingEngine:
         return self.release_slots(state,
                                   range(state.table.host.shape[0]))
 
+    @trace.traced("engine.poll_chunked")
     def poll_chunked(self, state, with_tokens: bool = True):
         """Read a cohort's progress back to the host: one device->host copy,
         returning ``(out, lengths, done, t)`` as numpy + int, where ``t`` is
@@ -888,6 +920,7 @@ class ServingEngine:
         return dataclasses.replace(state, caps_host=caps_host)
 
     @torch.no_grad()
+    @trace.traced("engine.refill_chunked")
     def refill_chunked(self, state, slots: Sequence[int],
                        prompts: Sequence[Sequence[int]],
                        n_tokens: Sequence[int], t_now: int,
@@ -940,29 +973,31 @@ class ServingEngine:
                 state.lease_end[slot] = le
                 state.lease_last[slot] = ll
             cols.append(ids)
-        dev = self._ship(*cols)                       # the one H2D copy
-        caps_d, m = dev[1][:, 0], dev[2][:, 0].bool()
-        new_cur, new_cache = self._prefill(params, dev[0])
-        # splice in place: refilled rows take their prefill, their caps and
-        # their resume prefix (or none); live rows keep theirs
-        torch.where(m, new_cur, state.cur, out=state.cur)
-        state.out.masked_fill_(m[:, None], 0)
-        state.lengths.masked_fill_(m, 0)
-        state.done &= ~m
-        torch.where(m, caps_d, state.caps, out=state.caps)
-        torch.where(m[:, None], dev[3], state.forced, out=state.forced)
-        torch.where(m, dev[4][:, 0], state.n_forced, out=state.n_forced)
-        emit = dict(caps_host=np.where(refill, new_caps, state.caps_host),
-                    t=int(t_now))
-        if paged:
-            self._page_scatter(arena.buffers(), new_cache,
-                               dev[5].reshape(-1))
-            return dataclasses.replace(state, **emit)
-        for old, new in zip(state.cache, new_cache):
-            for name in old:
-                mb = m.reshape((-1,) + (1,) * (old[name].dim() - 1))
-                torch.where(mb, new[name], old[name], out=old[name])
-        return dataclasses.replace(state, **emit)
+        trace.count("rows", len(slots))
+        with trace.device("dev.prefill", self.device):
+            dev = self._ship(*cols)                   # the one H2D copy
+            caps_d, m = dev[1][:, 0], dev[2][:, 0].bool()
+            new_cur, new_cache = self._prefill(params, dev[0])
+            # splice in place: refilled rows take their prefill, their caps
+            # and their resume prefix (or none); live rows keep theirs
+            torch.where(m, new_cur, state.cur, out=state.cur)
+            state.out.masked_fill_(m[:, None], 0)
+            state.lengths.masked_fill_(m, 0)
+            state.done &= ~m
+            torch.where(m, caps_d, state.caps, out=state.caps)
+            torch.where(m[:, None], dev[3], state.forced, out=state.forced)
+            torch.where(m, dev[4][:, 0], state.n_forced, out=state.n_forced)
+            if paged:
+                self._page_scatter(arena.buffers(), new_cache,
+                                   dev[5].reshape(-1))
+            else:
+                for old, new in zip(state.cache, new_cache):
+                    for name in old:
+                        mb = m.reshape((-1,) + (1,) * (old[name].dim() - 1))
+                        torch.where(mb, new[name], old[name], out=old[name])
+        return dataclasses.replace(
+            state, caps_host=np.where(refill, new_caps, state.caps_host),
+            t=int(t_now))
 
     def generate_via_chunks(self, prompts: Sequence[Sequence[int]],
                             n_tokens: Optional[Sequence[int]] = None,

@@ -1160,6 +1160,115 @@ def test_two_replays_of_the_same_state_are_bitwise_equal(cuda):
     assert all(torch.equal(a, b) for a, b in zip(k1, k2))
 
 
+@pytest.mark.cuda
+def test_a_capture_after_every_cohort_drained(cuda):
+    """The engine keeps its graph pool in use across drained cohorts: each
+    cohort captures its step anew after the last one was released and
+    freed (the pool's last graph used to go with it, and the next capture
+    failed ``use_count > 0``), and serves the same tokens."""
+    import gc
+
+    from repro_torch.serving.kv_arena import KVArena
+    eng = _loop_engine()
+    prompts, caps = _loop_prompts(5), [40, 40, 40, 40]
+    arena = KVArena.for_engines(eng, block_tokens=16)
+    outs = []
+    for _ in range(3):
+        st = eng.start_chunked(prompts, caps, arena=arena)
+        st = eng.generate_chunked(st, 64)
+        outs.append(eng.poll_chunked(st)[0])
+        eng.release_all(st)
+        del st
+        gc.collect()
+    assert len(eng.captures) == 3 and eng._gen is None
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+    assert arena.free_pages == arena.total_pages
+
+
+def _bloom3b_engine():
+    """Full-width BLOOM-3B at W8A16, B = 8, s' = 512, n_max = 128, no EOS
+    (every row decodes 128 tokens)."""
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(get_arch("bloom-3b"), batch_capacity=8, s_max=512,
+                         n_max=128, quant_bits=8, eos_id=-1, seed=0,
+                         device="cuda")
+
+
+@pytest.mark.cuda
+def test_device_intervals_cover_a_generate(cuda):
+    """The tracer's device intervals of a full-width BLOOM-3B ``generate``
+    (prefill, the device loop, the read-back), placed on the host clock,
+    lie inside the call's host span in that order, and prefill plus
+    decode come within 3 % of the call's synchronised host time."""
+    import time
+
+    from repro_torch.serving import trace
+    eng = _bloom3b_engine()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, eng.cfg.vocab, size=512).tolist()
+               for _ in range(8)]
+    for _ in range(2):                  # capture, then an anchor to place by
+        eng.generate(prompts, [128] * 8)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, [128] * 8)
+        t1 = time.perf_counter()
+        recs = [r for r in trace.records() if trace._end(r) >= t0]
+        iv = {r.name: r for r in recs if isinstance(r, trace.Interval)}
+        assert sorted(iv) == ["dev.decode", "dev.prefill", "dev.read_back"]
+        pre, dec, back = iv["dev.prefill"], iv["dev.decode"], \
+            iv["dev.read_back"]
+        eps = 50e-6
+        assert t0 - eps <= pre.t0 < pre.t1 <= dec.t0 + eps
+        assert dec.t0 < dec.t1 <= back.t0 + eps < back.t1 <= t1 + eps
+        assert [r.value for r in recs if isinstance(r, trace.Count)
+                and r.name == "iters"] == [128]
+        dev_s = (pre.t1 - pre.t0) + (dec.t1 - dec.t0)
+        assert abs(dev_s - (t1 - t0)) <= 0.03 * (t1 - t0), (dev_s, t1 - t0)
+    del eng
+
+
+@pytest.mark.cuda
+def test_anchor_places_device_events_within_50us(cuda):
+    """Each read-back ends in an anchor, an event recorded with its host
+    time on a stream a blocking copy left idle.  Placed from the one
+    before it (its host time plus the events' elapsed time), an anchor
+    lands within 50 us of its own host time, across device work and host
+    sleeps between them; an interval's start is never placed before the
+    host recorded it (less 50 us).  The card's gauges come from NVML."""
+    import time
+
+    from repro_torch.serving import trace
+    x = torch.randn(2048, 2048, device=cuda)
+    dev = torch.cuda.current_device()
+    with trace.read_back(cuda):
+        x[0, 0].cpu()
+    errs, lags = [], []
+    for i in range(6):
+        h1, a1 = trace._T.anchors[dev]
+        time.sleep(0.01 * i)
+        h0 = time.perf_counter()
+        with trace.device("probe", cuda):
+            for _ in range(20):
+                x = torch.tanh(x @ x)
+        time.sleep(0.005)
+        with trace.read_back(cuda):
+            x[0, 0].cpu()
+        h2, a2 = trace._T.anchors[dev]
+        a2.synchronize()
+        errs.append(h1 + a1.elapsed_time(a2) * 1e-3 - h2)
+        probe = [r for r in trace.records()
+                 if isinstance(r, trace.Interval) and r.name == "probe"][-1]
+        lags.append(probe.t0 - h0)
+    assert max(abs(e) for e in errs) < 50e-6, errs
+    assert min(lags) > -50e-6, lags
+    gauges = [r for r in trace.records() if isinstance(r, trace.Gauge)]
+    assert gauges and gauges[-1].sm_mhz > 0 and gauges[-1].power_w > 0
+
+
 # -- the transformer family's other members: their shapes and paths -------
 
 
