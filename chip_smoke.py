@@ -1208,6 +1208,89 @@ def fused_phase(shape=ATTN7, seed=7):
                    out[name]) for name in ("K6", "K7")}
 
 
+def _ulp_err(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of the larger magnitude."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                             - 7)).max())
+
+
+def decode_glue_phase(shape=ATTN, D=2560, seed=51):
+    """The decode glue at one model's decode widths (B = 8, bf16): add_norm
+    (the residual add and a LayerNorm with its weight, D) and rope_qk_write
+    (q, k of nh, nkv heads of dh rotated at a device position, k and v
+    written into a slab of W slots), each against its plain version (the
+    op chain it replaces: x_new bitwise, h, q and the written k within one
+    bf16 ulp, v bitwise) and timed beside its bytes bound, the chain and,
+    for add_norm, ``x + y`` then ``F.layer_norm`` as the library's
+    yardstick.  The operands are the few kilobytes a decode step's GEMVs
+    have just written: they are not rotated out of the L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_glue as dg
+    B, nh, nkv, dh, W = (shape[k] for k in ("B", "nh", "nkv", "dh", "W"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(torch.bfloat16)
+    x, y = randn(B, 1, D), randn(B, 1, D, scale=2.0)
+    w, bias = 1 + randn(D, scale=0.1).float(), torch.zeros(D, device=dev)
+    w = w.to(torch.bfloat16)
+    got_x, got_h = dg.add_norm_cuda(x, y, w, "layernorm")
+    want_x, want_h = dg.add_norm_plain(x, y, w, "layernorm")
+    check(torch.equal(got_x, want_x), "add_norm: x_new is not bitwise x + y")
+    err_n = _ulp_err(got_h, want_h)
+    check(err_n <= 1.0, f"add_norm: h {err_n} bf16 ulps from the chain")
+    lib_h = F.layer_norm(want_x, (D,), w, bias.to(torch.bfloat16), 1e-5)
+    _assert_close(lib_h, want_h, LIBRARY_TOL, "F.layer_norm yardstick")
+    n_bytes = 2 * (5 * B * D + D)                 # x, y, w in; x_new, h out
+    b, by = bound_ms(n_bytes, 8.0 * B * D, "bf16")
+    norm = dict(ms=device_ms(lambda i: dg.add_norm_cuda(x, y, w,
+                                                        "layernorm")),
+                plain_ms=device_ms(lambda i: dg.add_norm_plain(
+                    x, y, w, "layernorm")),
+                library_ms=device_ms(lambda i: F.layer_norm(
+                    x + y, (D,), w, None, 1e-5)),
+                library_call="x + y, then torch.nn.functional.layer_norm",
+                bound_ms=b, bound_by=by)
+    q, k, v = randn(B, 1, nh, dh), randn(B, 1, nkv, dh), randn(B, 1, nkv, dh)
+    ck, cv = randn(B, W, nkv, dh), randn(B, W, nkv, dh)
+    freqs = dg.rope_table(dh, 1e4, dev)
+    err_r = 0.0
+    for p in (0, 16, W - 1):
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        gk, gv, wk, wv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        gq = dg.rope_qk_write_cuda(q, k, v, pos, freqs, gk, gv)
+        wq = dg.rope_qk_write_plain(
+            q, k, v, pos.reshape(1, 1).expand(B, 1), wk, wv,
+            torch.tensor([p], device=dev), 1e4)
+        check(torch.equal(gv, wv), f"rope_qk_write: v at {p} not bitwise")
+        check(torch.equal(torch.cat([gk[:, :p], gk[:, p + 1:]], 1),
+                          torch.cat([ck[:, :p], ck[:, p + 1:]], 1)),
+              f"rope_qk_write: a slot other than {p} changed")
+        err_r = max(err_r, _ulp_err(gq, wq), _ulp_err(gk, wk))
+    check(err_r <= 1.0, f"rope_qk_write: {err_r} bf16 ulps from the chain")
+    pos = torch.tensor(W // 2, dtype=torch.int32, device=dev)
+    positions = pos.reshape(1, 1).expand(B, 1)
+    slot = torch.tensor([W // 2], device=dev)
+    n_bytes = 2 * 2 * B * (nh + 2 * nkv) * dh + 4 * dh // 2
+    b, by = bound_ms(n_bytes, 12.0 * B * (nh + nkv) * dh // 2, "bf16")
+    rope = dict(ms=device_ms(lambda i: dg.rope_qk_write_cuda(
+                    q, k, v, pos, freqs, ck, cv)),
+                plain_ms=device_ms(lambda i: dg.rope_qk_write_plain(
+                    q, k, v, positions, ck, cv, slot, 1e4)),
+                library_ms=None, library_call="none (no library rope)",
+                bound_ms=b, bound_by=by)
+    what = f"B={B} D={D}, {nh} x {dh} over {nkv}, W={W}, bf16"
+    return {"add_norm": (err_n, "x_new bitwise; h within one bf16 ulp (in "
+                         "ulps)", dict(norm, shape=f"add_norm {what}")),
+            "rope_qk_write": (err_r, "q and k within one bf16 ulp (in "
+                              "ulps), v bitwise; positions 0, 16, W - 1",
+                              dict(rope, shape=f"rope_qk_write {what}"))}
+
+
 KERNELS = [
     # (name, counter, source, replaces, the main path whose run its
     # "launches" reports)
@@ -1308,6 +1391,21 @@ KERNELS = [
     ("flash_decode_fused_paged_internvl2", "flash_decode_fused_paged",
      "src/repro_torch/csrc/flash_decode_fused.cu",
      "src/repro/kernels/flash_decode.py:260", "internvl2_continuous_w8a16"),
+    # the decode glue (no Pallas kernel: XLA fuses these chains in the JAX
+    # package) at BLOOM-3B's and BLOOM-7B1's decode widths; BLOOM-7B1's
+    # fused tier does its own rope, so its rope_qk_write launches come from
+    # the measured run's K4/K5 cohorts
+    ("decode_glue_add_norm", "add_norm", "src/repro_torch/csrc/decode_glue.cu",
+     "src/repro/models/common.py:66", "dftsp_w8a16"),
+    ("decode_glue_rope_qk_write", "rope_qk_write",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:96",
+     "dftsp_w8a16"),
+    ("decode_glue_add_norm_bloom7b1", "add_norm",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:66",
+     "bloom7b1_dftsp_w8a16"),
+    ("decode_glue_rope_qk_write_bloom7b1", "rope_qk_write",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:96",
+     "bloom7b1_continuous_auto_measured"),
 ]
 
 
@@ -1353,8 +1451,14 @@ def kernel_phase(parent=None):
             for tag in ("", "_a8"):
                 fused[k][2]["call" + tag + "_ms"] = calls[k + tag]
                 fused[k][2]["parent" + tag + "_ms"] = parent_ms["fused"][k + tag]
+    glue = {"": decode_glue_phase(),
+            "_bloom7b1": decode_glue_phase(ATTN7, D=ATTN7["D"], seed=52)}
     for name, counter, *_ in KERNELS:
-        if name.endswith("_router"):
+        if counter in ("add_norm", "rope_qk_write"):
+            err, tol, t = glue["_bloom7b1" if name.endswith("_bloom7b1")
+                               else ""][counter]
+            shape = t.pop("shape")
+        elif name.endswith("_router"):
             tier = counter.split("_")[0]
             if tier not in router:
                 router[tier] = quant_matmul_phase(tier, ROUTER_MATMULS)
@@ -1453,7 +1557,8 @@ def kernel_phase(parent=None):
         results[name] = dict(max_abs_err=err, tolerance=tol, shape=shape, **t)
         log(f"{name}: max_abs_err={err:.4g} ({tol}); ms={t['ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
-            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}"
+            f"plain_ms={t['plain_ms']:.4f} library_ms="
+            f"{'none' if t['library_ms'] is None else round(t['library_ms'], 4)}"
             + (f"; prefill ms={t['prefill_ms']:.3f} bound_ms="
                f"{t['prefill_bound_ms']:.3f} ({t['prefill_bound_by']}) "
                f"plain_ms={t['prefill_plain_ms']:.3f} library_ms="

@@ -19,7 +19,12 @@
 // step's kernel launches).  No iteration runs once every row is dead.
 // The work is one launch a segment and a few bytes read per iteration;
 // nothing here is bound by bytes or operations.
+//
+// `graph_kernel_nodes` counts the kernel nodes of a graph (a captured
+// step's, read once after its capture): what one iteration launches.
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -43,6 +48,28 @@ cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t graph,
 #else
   return cudaGraphAddNode(node, graph, deps, n_deps, params);
 #endif
+}
+
+// The kernel nodes of graph, child graphs counted through, into *n.
+cudaError_t count_kernels(cudaGraph_t graph, long long* n) {
+  size_t count = 0;
+  cudaError_t e = cudaGraphGetNodes(graph, nullptr, &count);
+  if (e != cudaSuccess || count == 0) return e;
+  std::vector<cudaGraphNode_t> nodes(count);
+  e = cudaGraphGetNodes(graph, nodes.data(), &count);
+  for (size_t i = 0; e == cudaSuccess && i < count; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    if (type == cudaGraphNodeTypeKernel) {
+      ++*n;
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e == cudaSuccess) e = count_kernels(child, n);
+    }
+  }
+  return e;
 }
 
 }  // namespace
@@ -111,6 +138,15 @@ int decode_loop_launch(void* exec, void* stream) {
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// graph: a cudaGraph_t (not changed); *n_out: its kernel nodes.
+int graph_kernel_nodes(void* graph, void* n_out) {
+  long long n = 0;
+  cudaError_t e = count_kernels(static_cast<cudaGraph_t>(graph), &n);
+  if (e != cudaSuccess) return (int)e;
+  *static_cast<long long*>(n_out) = n;
+  return 0;
 }
 
 int decode_loop_destroy(void* exec) {

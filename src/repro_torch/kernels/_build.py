@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("quant_matmul", "flash_decode", "flash_decode_fused",
-           "decode_loop")
+           "decode_loop", "decode_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,6 +98,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "decode_loop_build": (P, P, P, P, P, P, I, P, P),
         "decode_loop_launch": (P, P),
         "decode_loop_destroy": (P,),
+        "graph_kernel_nodes": (P, P),
+        "add_norm": (P, P, P, P, P, I, I, I, I, F, I, P),
+        "rope_qk_write": (P,) * 5 + (I,) + (P,) * 4 + (I,) * 8
+        + (L, L, L, I, P),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -17,7 +17,8 @@ iterations it has run (``iters``, advanced by the condition kernel); the
 engine reads ``iters`` back inside the device->host copy it makes anyway
 and calls :meth:`DeviceLoop.count`, which adds ``launches`` once for each
 iteration run since the last read.  ``LAUNCHES["decode_loop"]`` counts
-the loop graph's own launches.
+the loop graph's own launches, and ``kernel_nodes`` the kernels a captured
+step holds, what each iteration launches on the device.
 """
 from __future__ import annotations
 
@@ -31,6 +32,17 @@ from repro_torch.kernels import _build
 # launches of the loop graph (one a segment); its iterations launch the
 # step's kernels, counted under their own names
 LAUNCHES = {"decode_loop": 0}
+
+
+def kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), read from its ``raw_cuda_graph()`` after the
+    capture: the kernels one replay launches."""
+    n = ctypes.c_longlong()
+    rc = _build.library("decode_loop").graph_kernel_nodes(
+        graph.raw_cuda_graph(), ctypes.byref(n))
+    _build.check(rc, "graph_kernel_nodes")
+    return int(n.value)
 
 
 class DeviceLoop:

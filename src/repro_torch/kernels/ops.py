@@ -11,6 +11,7 @@ from typing import Dict, Union
 
 import torch
 
+from repro_torch.kernels import decode_glue as _dg
 from repro_torch.kernels import decode_loop as _dl
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import quant_matmul as _qm
@@ -25,7 +26,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-_COUNTERS = (_qm.LAUNCHES, _fd.LAUNCHES, _dl.LAUNCHES)
+_COUNTERS = (_qm.LAUNCHES, _fd.LAUNCHES, _dg.LAUNCHES, _dl.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -115,14 +116,65 @@ def decode_pos(pos, device) -> DecodePos:
     return pos if isinstance(pos, DecodePos) else DecodePos(pos, device)
 
 
+def rope_positions(dp: DecodePos, B: int) -> torch.Tensor:
+    """The (B, 1) int32 rope positions of a decode step (a view)."""
+    return dp.derive(("rope_pos", B), lambda p: p.reshape(1, 1).expand(B, 1))
+
+
+def cache_slot(dp: DecodePos, W: int) -> torch.Tensor:
+    """The slot pos % W of a slab cache of W slots, as a (1,) int64."""
+    return dp.derive(("slot", W), lambda p: (p % W).reshape(1).long())
+
+
+def page_index(dp: DecodePos, table: torch.Tensor, bt: int, B: int):
+    """(page, offset) (B,) int64 of a decode step's write into pages of
+    ``bt`` slots: page ``table[b, pos // bt]``, offset ``pos % bt``."""
+    page = dp.derive(("page", bt), lambda p: torch.index_select(
+        table, 1, (p // bt).reshape(1).long())[:, 0].long())
+    off = dp.derive(("offset", bt, B),
+                    lambda p: (p % bt).reshape(1).expand(B).long())
+    return page, off
+
+
+def add_norm(x: torch.Tensor, y, w, kind: str, eps: float = 1e-5):
+    """A decode layer's residual add and the norm after it: (x + y, the
+    ``kind`` norm of x + y with weight ``w``), or (x, the norm of x) with
+    ``y`` None; x, y (..., D).  On CUDA one launch of ``add_norm``."""
+    if _on_cuda(x):
+        return _dg.add_norm_cuda(x, y, w, kind, eps)
+    return _dg.add_norm_plain(x, y, w, kind, eps)
+
+
+def rope_qk_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                  theta: float, k_dst: torch.Tensor, v_dst: torch.Tensor,
+                  table: torch.Tensor = None,
+                  use_rope: bool = True) -> torch.Tensor:
+    """One decode token's q (B, 1, nh, dh), k and v (B, 1, nkv, dh) at
+    position ``pos`` (a host int, an int32 0-d tensor or a
+    :class:`DecodePos`): q and k rotated (``use_rope``), k and v written in
+    place into a slab cache (B, W, nkv, dh) at slot pos % W, or, with a
+    block ``table`` (B, n_b), into page ``table[b, pos // bt]`` at offset
+    ``pos % bt`` of the page views (P, bt, nkv, dh); returns the rotated
+    q.  On CUDA one launch of ``rope_qk_write``."""
+    dp = decode_pos(pos, q.device)
+    if _on_cuda(q):
+        freqs = _dg.rope_table(q.shape[-1], theta, q.device)
+        return _dg.rope_qk_write_cuda(q, k, v, dp.pos, freqs, k_dst, v_dst,
+                                      table, use_rope)
+    B = q.shape[0]
+    index = cache_slot(dp, k_dst.shape[1]) if table is None \
+        else page_index(dp, table, k_dst.shape[1], B)
+    return _dg.rope_qk_write_plain(q, k, v, rope_positions(dp, B), k_dst,
+                                   v_dst, index, theta, use_rope)
+
+
 def _rope_rows(pos, dh: int, theta: float, device):
     """cos/sin (1, dh/2) float32 rows for decode position ``pos`` (an int
     or a 0-d tensor; the angle convention of ``models.common.apply_rope``),
     made once here so that the slab and the paged fused kernels see the
     same rows.  A position below 2^24 is exact in float32, so
     ``freqs * float(pos)`` and ``freqs * pos.float()`` round alike."""
-    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                          device=device) / dh))
+    freqs = _dg.rope_freqs(dh, theta, device)
     if isinstance(pos, torch.Tensor):
         ang = freqs * pos.to(torch.float32)
     else:

@@ -12,13 +12,17 @@ projections, the fused ``flash_decode_fused`` / ``flash_decode_fused_paged``
 (``use_kernel``, the default; switching it off is for CPU tensors only).
 Over an int8 KV cache (``kv_bits=8``) decode attention dequantizes the
 cache and takes the plain masked softmax on every device, as the JAX
-package does (its ``"kv8"`` tier has no kernel).  The MoE experts' einsums
-run on the dequantized expert weights, outside any kernel, as in the JAX
-package; the router goes through ``mm``.  Cache writes update the cache
-tensors in place (the JAX package returns new arrays): a decode step then
-costs no cache copy.  The recurrent, hybrid and audio families take
-``decode_attention_plain`` on every device: the path the JAX package
-serves them on, with no kernel.
+package does (its ``"kv8"`` tier has no kernel).  Off a mesh, a decode
+step's residual adds with the norms after them (``add_norm``) and the
+unfused tier's rope with the token's cache write go through the decode-glue
+kernels (``kops.add_norm``, ``kops.rope_qk_write``); the prefill and
+training keep the op chains of ``apply_norm`` and ``apply_rope``.  The MoE
+experts' einsums run on the dequantized expert weights, outside any
+kernel, as in the JAX package; the router goes through ``mm``.  Cache
+writes update the cache tensors in place (the JAX package returns new
+arrays): a decode step then costs no cache copy.  The recurrent, hybrid
+and audio families take ``decode_attention_plain`` on every device: the
+path the JAX package serves them on, with no kernel.
 
 Sharding is expressed through logical-axis constraints (``constrain``,
 ``seq_shard``) at the JAX package's places; they return their input, with
@@ -136,6 +140,20 @@ def apply_norm(kind: str, w: Optional[torch.Tensor], x: torch.Tensor,
     if w is not None:
         y = y * w.to(torch.float32)
     return seq_gather(y.to(x.dtype))
+
+
+def add_norm(kind: str, w: Optional[torch.Tensor], x: torch.Tensor,
+             y: Optional[torch.Tensor] = None,
+             use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's residual add and the norm after it: (x + y,
+    ``apply_norm(kind, w, x + y)``), or (x, ``apply_norm(kind, w, x)``)
+    with ``y`` None.  With ``use_kernel`` and off a mesh, ``kops.add_norm``
+    (one kernel on CUDA); otherwise the op chain."""
+    if use_kernel and not on_mesh(x):
+        return kops.add_norm(x, y, w, kind)
+    if y is not None:
+        x = x + y
+    return x, apply_norm(kind, w, x)
 
 
 def rms_head_norm(x: torch.Tensor, w: torch.Tensor,
@@ -418,8 +436,7 @@ def cache_write(pairs, pos) -> None:
     pair at slot pos % W, in place (``index_copy_`` at a device index: pos
     is an int, a 0-d tensor or a ``DecodePos``)."""
     W = pairs[0][0].shape[1]
-    slot = kops.decode_pos(pos, pairs[0][1].device).derive(
-        ("slot", W), lambda p: (p % W).reshape(1).long())
+    slot = kops.cache_slot(kops.decode_pos(pos, pairs[0][1].device), W)
     for leaf, val in pairs:
         if sharded_dim(leaf, "model") == 1:
             # a slot-sharded cache (launch/steps.cache_specs): a one-hot
@@ -432,9 +449,29 @@ def cache_write(pairs, pos) -> None:
             leaf.index_copy_(1, slot, val.to(leaf.dtype))
 
 
-def _rope_positions(dp, B: int) -> torch.Tensor:
-    """The (B, 1) int32 rope positions of a decode step (a view)."""
-    return dp.derive(("rope_pos", B), lambda p: p.reshape(1, 1).expand(B, 1))
+def _decode_qkv_write(p: Params, cfg: ModelConfig, x: torch.Tensor, dp,
+                      k_dst: torch.Tensor, v_dst: torch.Tensor,
+                      table: Optional[torch.Tensor] = None,
+                      use_rope: bool = True) -> torch.Tensor:
+    """One decode token's projections (qk-norm included), rope on q and k,
+    and k and v written into the cache: a slab (B, W, nkv, dh) at slot
+    pos % W, or, with ``table``, the page views at page ``table[b, pos //
+    bt]``, offset ``pos % bt``.  Returns q (B, 1, nh, dh).  Off a mesh the
+    rope and the write are ``kops.rope_qk_write`` (one kernel on CUDA);
+    on a mesh, ``qkv_proj``'s rope and ``cache_write`` / ``index_put_``."""
+    B = x.shape[0]
+    if on_mesh(x):
+        q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
+        if table is None:
+            cache_write(((k_dst, k1), (v_dst, v1)), dp)
+        else:
+            index = kops.page_index(dp, table, k_dst.shape[1], B)
+            k_dst.index_put_(index, k1[:, 0].to(k_dst.dtype))
+            v_dst.index_put_(index, v1[:, 0].to(v_dst.dtype))
+        return q
+    q, k1, v1 = qkv_proj(p, cfg, x, None, use_rope=False)
+    return kops.rope_qk_write(q, k1, v1, dp, cfg.rope_theta, k_dst, v_dst,
+                              table, use_rope)
 
 
 def _valid_mask(n_valid: torch.Tensor, W: int) -> torch.Tensor:
@@ -475,8 +512,7 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             dp, rope_theta=cfg.rope_theta, use_rope=use_rope)
         cache_write(((cache_k, k1[:, None]), (cache_v, v1[:, None])), dp)
         return constrain(o[:, None], "batch", None, None)
-    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
-    cache_write(((cache_k, k1), (cache_v, v1)), dp)
+    q = _decode_qkv_write(p, cfg, x, dp, cache_k, cache_v, use_rope=use_rope)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
@@ -497,7 +533,7 @@ def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
     through ``decode_attention(use_kernel=False)``."""
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
-    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B), use_rope)
+    q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
     cache_write(((cache_k, k1), (cache_v, v1)), dp)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
@@ -521,7 +557,7 @@ def decode_attention_cache(p: Params, cfg: ModelConfig, x: torch.Tensor,
                                 use_kernel=use_kernel)
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
-    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
+    q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B))
     k1q, k1s = quantize_kv(k1)
     v1q, v1s = quantize_kv(v1)
     cache_write(((cache["k"], k1q), (cache["v"], v1q), (cache["ks"], k1s),
@@ -576,21 +612,19 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     n_b = table.shape[1]
     W = n_b * bt
     dp = kops.decode_pos(pos, x.device)
-    page, off = _page_index(dp, table, bt, B)
+    kc, vc = pk[..., :nkv, :dh], pv[..., :nkv, :dh]
     if use_kernel and kops.fusable_decode(p, cfg):
         # fused tier (K7) over the pre-write pages, then the write
+        page, off = kops.page_index(dp, table, bt, B)
         o, k1, v1 = kops.flash_decode_fused_paged(
-            x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], pk[..., :nkv, :dh],
-            pv[..., :nkv, :dh], table, dp, rope_theta=cfg.rope_theta)
-        pk[..., :nkv, :dh].index_put_((page, off), k1.to(pk.dtype))
-        pv[..., :nkv, :dh].index_put_((page, off), v1.to(pv.dtype))
+            x[:, 0], p["wq"], p["wk"], p["wv"], p["wo"], kc, vc, table, dp,
+            rope_theta=cfg.rope_theta)
+        kc.index_put_((page, off), k1.to(pk.dtype))
+        vc.index_put_((page, off), v1.to(pv.dtype))
         return constrain(o[:, None], "batch", None, None)
-    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
-    pk[..., :nkv, :dh].index_put_((page, off), k1[:, 0].to(pk.dtype))
-    pv[..., :nkv, :dh].index_put_((page, off), v1[:, 0].to(pv.dtype))
+    q = _decode_qkv_write(p, cfg, x, dp, kc, vc, table)
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
-    kc, vc = pk[..., :nkv, :dh], pv[..., :nkv, :dh]
     if use_kernel:
         out = kops.flash_decode_paged(q[:, 0], kc, vc, table, n_valid)[:, None]
     else:
@@ -600,16 +634,6 @@ def decode_attention_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = gqa_attention(q, kd, vd, _valid_mask(n_valid, W))
     out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
     return constrain(out, "batch", None, None)
-
-
-def _page_index(dp, table: torch.Tensor, bt: int, B: int):
-    """(page, offset) (B,) int64 of a decode step's write: page
-    ``table[b, pos // bt]``, offset ``pos % bt``."""
-    page = dp.derive(("page", bt), lambda p: torch.index_select(
-        table, 1, (p // bt).reshape(1).long())[:, 0].long())
-    off = dp.derive(("offset", bt, B),
-                    lambda p: (p % bt).reshape(1).expand(B).long())
-    return page, off
 
 
 def _decode_attention_paged_kv8(p: Params, cfg: ModelConfig,
@@ -622,8 +646,8 @@ def _decode_attention_paged_kv8(p: Params, cfg: ModelConfig,
     bt = pages["k"].shape[1]
     W = table.shape[1] * bt
     dp = kops.decode_pos(pos, x.device)
-    page, off = _page_index(dp, table, bt, B)
-    q, k1, v1 = qkv_proj(p, cfg, x, _rope_positions(dp, B))
+    page, off = kops.page_index(dp, table, bt, B)
+    q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B))
     idx = table.long()
     views = {}
     for name, val in zip(("k", "v"), (k1, v1)):

@@ -198,6 +198,24 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache_len: int = 0,
     return _unembed(cfg, params, x)[:, 0], cache
 
 
+def _decode_layers(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   attend, use_kernel: bool) -> torch.Tensor:
+    """The layers of a decode step over the embedded tokens x (B, 1, D),
+    each residual add fused with the norm after it (``common.add_norm``:
+    norm2, then the next layer's norm1 or the final norm);
+    ``attend(l, lp, h)`` is layer l's attention on its normed input.
+    Returns the final norm's output."""
+    layers = params["layers"]
+    norms = [lp["norm1"] for lp in layers] + [params["final_norm"]]
+    x, h = common.add_norm(cfg.norm, norms[0], x, use_kernel=use_kernel)
+    for l, lp in enumerate(layers):
+        x, h = common.add_norm(cfg.norm, lp["norm2"], x, attend(l, lp, h),
+                               use_kernel)
+        x, h = common.add_norm(cfg.norm, norms[l + 1], x,
+                               _ffn(cfg, lp, h)[0], use_kernel)
+    return h
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, pos, use_kernel: bool = True):
     """One decode iteration.  tokens: (B, 1) int; pos: the position of
@@ -206,18 +224,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     takes the same tensor code.  The slot, valid counts and rope rows
     derived from it are made once and shared by the layers.  Updates
     ``cache`` in place and returns (logits, cache).  ``use_kernel`` routes
-    attention through the decode kernel; off, it takes the plain masked
-    softmax, on CPU tensors only."""
+    attention through the decode kernel, and the residual adds, norms,
+    rope and cache writes through the decode-glue kernels; off, attention
+    takes the plain masked softmax and the rest the op chains, on CPU
+    tensors only."""
     x = constrain(common.embed(_table(params), tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
-    for lp, layer_cache in zip(params["layers"], cache):
-        h = common.apply_norm(cfg.norm, lp["norm1"], x)
-        x = x + common.decode_attention_cache(lp["attn"], cfg, h, layer_cache,
-                                              dp, use_kernel)
-        h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + _ffn(cfg, lp, h)[0]
-    x = common.apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(cfg, params, x)[:, 0], cache
+    h = _decode_layers(
+        cfg, params, x, lambda l, lp, h: common.decode_attention_cache(
+            lp["attn"], cfg, h, cache[l], dp, use_kernel), use_kernel)
+    return _unembed(cfg, params, h)[:, 0], cache
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params,
@@ -232,15 +248,11 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
     ``pages`` in place and returns (logits, pages)."""
     x = constrain(common.embed(_table(params), tokens), "batch", None, None)
     dp = kops.decode_pos(pos, x.device)
-    for l, lp in enumerate(params["layers"]):
-        h = common.apply_norm(cfg.norm, lp["norm1"], x)
-        x = x + common.decode_attention_paged(
+    h = _decode_layers(
+        cfg, params, x, lambda l, lp, h: common.decode_attention_paged(
             lp["attn"], cfg, h, {name: leaf[l] for name, leaf in pages.items()},
-            table, dp, use_kernel)
-        h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + _ffn(cfg, lp, h)[0]
-    x = common.apply_norm(cfg.norm, params["final_norm"], x)
-    return _unembed(cfg, params, x)[:, 0], pages
+            table, dp, use_kernel), use_kernel)
+    return _unembed(cfg, params, h)[:, 0], pages
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig):

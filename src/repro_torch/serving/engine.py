@@ -86,7 +86,7 @@ import torch
 
 from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.decode_loop import DeviceLoop
+from repro_torch.kernels.decode_loop import DeviceLoop, kernel_nodes
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.common import torch_dtype
 from repro_torch.quant.ptq import QTensor, dequantize_tree, quantize_tree, \
@@ -533,7 +533,9 @@ class ServingEngine:
         is no eager fallback on CUDA.  The engine holds the loop it
         captured last until the next capture succeeds: a pool whose graphs
         are all freed (every cohort drained) cannot take another capture.
-        ``captures`` records the span's host ms, warm-up included."""
+        ``captures`` records the span's host ms, warm-up included, and the
+        kernel nodes of the captured step (``kernel_nodes``, read after the
+        span; also a count ``nodes`` of the tracer)."""
         with trace.span("engine.capture") as timing:
             step = self._model_step(state)
             with trace.span("engine.capture.warm_up"):
@@ -551,8 +553,11 @@ class ServingEngine:
             loop = DeviceLoop(graph, state.t_dev, state.t_end, state.lengths,
                               state.caps, state.done, launches)
         self._last_loop = loop
+        nodes = kernel_nodes(graph)
+        trace.count("nodes", nodes)
         self.captures.append(dict(bits=state.bits, ms=timing.ms,
-                                  paged=isinstance(state, PagedDecodeState)))
+                                  paged=isinstance(state, PagedDecodeState),
+                                  nodes=nodes))
         return loop
 
     def _read_back(self, state, cols) -> np.ndarray:

@@ -25,7 +25,8 @@ ones it dropped (``dropped_since``).  Four kinds of record, all on the
   the events' elapsed time from the anchor).  Intervals recorded before a
   device's first anchor are not placed.
 - :class:`Count`, a number a call reports: ``iters``, the decode-loop
-  iterations a read-back found; ``rows``, the rows a prefill admitted.
+  iterations a read-back found; ``rows``, the rows a prefill admitted;
+  ``nodes``, the kernel nodes of a step the engine captured.
 - :class:`Gauge`: the card's SM clock (MHz), board power (W) and
   clock-event reason bitmask, read from NVML through ``ctypes`` at most
   once a second, after a read-back; none where NVML does not load.
@@ -341,8 +342,8 @@ def _union_s(intervals) -> float:
 def report(since: float = -math.inf) -> str:
     """The operator's line: prefill ms, decode-step ms, the card's idle
     share over the data-plane calls' span, the captures with their ms and
-    the last SM clock and power, from the records kept that end at or
-    after ``since`` (a ``time.perf_counter`` time)."""
+    kernel nodes, and the last SM clock and power, from the records kept
+    that end at or after ``since`` (a ``time.perf_counter`` time)."""
     recs = [r for r in records() if _end(r) >= since]
     spans = [r for r in recs if isinstance(r, Span)]
     ivs = [r for r in recs if isinstance(r, Interval)]
@@ -362,6 +363,8 @@ def report(since: float = -math.inf) -> str:
         or ivs
     t0, t1 = min(r.t0 for r in bounds), max(r.t1 for r in bounds)
     caps = [1e3 * (r.t1 - r.t0) for r in spans if r.name == "engine.capture"]
+    nodes = [r.value for r in recs if isinstance(r, Count)
+             and r.name == "nodes"]
     gauges = [r for r in recs if isinstance(r, Gauge)]
     out = [f"prefill {statistics.median(pre):.2f} ms (median of "
            f"{len(pre)}, {rows} rows)" if pre else "no prefill"]
@@ -370,7 +373,8 @@ def report(since: float = -math.inf) -> str:
     idle = 1.0 - _union_s((r.t0, r.t1) for r in ivs) / (t1 - t0)
     out.append(f"card idle {100 * idle:.2f} % of {t1 - t0:.3f} s")
     out.append(f"captures {len(caps)}, ms {[round(c, 1) for c in caps[:8]]}"
-               + (" ..." if len(caps) > 8 else ""))
+               + (" ..." if len(caps) > 8 else "")
+               + (f", kernel nodes {nodes[:8]}" if nodes else ""))
     if gauges:
         g = gauges[-1]
         out.append(f"SM {g.sm_mhz} MHz, {g.power_w:.1f} W")

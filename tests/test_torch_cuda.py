@@ -33,6 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)     # the xdist workers share the host's cores
 
+from repro_torch.kernels import decode_glue as tdg  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
@@ -612,6 +613,161 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     assert counts["w8a16"] == counts["w4a16"] == 0
 
 
+# -- the decode glue (csrc/decode_glue.cu): add_norm, rope_qk_write --------
+
+# (D, norm, weighted): BLOOM-3B, BLOOM-7B1, qwen3-1.7b, OLMo-1B
+GLUE_NORMS = [(2560, "layernorm", True), (4096, "layernorm", True),
+              (2048, "rmsnorm", True), (2048, "nonparam_ln", False)]
+# (nh, nkv, dh): BLOOM-3B, BLOOM-7B1, qwen3-1.7b (G = 2)
+GLUE_HEADS = [(32, 32, 80), (32, 32, 128), (16, 8, 128)]
+GLUE_W, GLUE_BT = 640, 16          # s' 512 + n_max 128; the arena's pages
+
+
+def _rand(shape, device, dtype=torch.bfloat16, seed=0, scale=1.0,
+          shift=0.0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape).astype(np.float32) * scale + shift
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _assert_ulps(got, want, what):
+    """got within one ulp of want in their type (bfloat16: 2^-7 of the
+    larger magnitude's binade; float32 kernels sum in another order and are
+    held at 1e-5)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = (g - w).abs() > ulp
+    assert not bad.any(), (f"{what}: {int(bad.sum())} elements beyond one "
+                           f"bf16 ulp, max |diff| "
+                           f"{float((g - w).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_y", [True, False], ids=["add", "no_add"])
+@pytest.mark.parametrize("D,kind,weighted", GLUE_NORMS)
+def test_add_norm_cuda_vs_plain(cuda, D, kind, weighted, with_y, dtype):
+    """x_new bitwise PyTorch's add, h within one ulp of the op chain; a
+    row's result alone equals it in a batch of 8, and a second call equals
+    the first; one launch a call."""
+    x = _rand((8, 1, D), cuda, dtype, 0, shift=0.3)
+    y = _rand((8, 1, D), cuda, dtype, 1, scale=2.0) if with_y else None
+    w = _rand((D,), cuda, dtype, 2, scale=0.1, shift=1.0) if weighted \
+        else None
+    ops.reset_launch_counts()
+    got_x, got_h = ops.add_norm(x, y, w, kind)
+    assert ops.launch_counts()["add_norm"] == 1
+    want_x, want_h = tdg.add_norm_plain(x, y, w, kind)
+    assert torch.equal(got_x, want_x)
+    _assert_ulps(got_h, want_h, f"add_norm {kind} D={D}")
+    one_x, one_h = tdg.add_norm_cuda(x[3:4], None if y is None else y[3:4],
+                                     w, kind)
+    assert torch.equal(one_x, got_x[3:4]) and torch.equal(one_h, got_h[3:4])
+    again = tdg.add_norm_cuda(x, y, w, kind)
+    assert torch.equal(again[0], got_x) and torch.equal(again[1], got_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+@pytest.mark.parametrize("pos", [0, GLUE_BT, GLUE_W - 1])
+@pytest.mark.parametrize("nh,nkv,dh", GLUE_HEADS)
+def test_rope_qk_write_cuda_vs_plain(cuda, nh, nkv, dh, pos, paged):
+    """q and the cache's k within one bf16 ulp of the op chain, v copied
+    bitwise, only the token's slot (page) written, at positions 0, a page
+    edge and W - 1; a device position and a host int give the same bits;
+    one launch a call."""
+    B, W, bt = 8, GLUE_W, GLUE_BT
+    q = _rand((B, 1, nh, dh), cuda, seed=pos)
+    k = _rand((B, 1, nkv, dh), cuda, seed=pos + 1)
+    v = _rand((B, 1, nkv, dh), cuda, seed=pos + 2)
+    ck = _rand((B, W, nkv, dh), cuda, seed=3)
+    cv = _rand((B, W, nkv, dh), cuda, seed=4)
+    freqs = tdg.rope_table(dh, 1e4, cuda)
+    if paged:
+        rng = np.random.default_rng(5)
+        n_b = W // bt
+        table = torch.from_numpy((2 + rng.permutation(B * n_b)).reshape(
+            B, n_b).astype(np.int32)).to(cuda)
+        arenas = []
+        for c in (ck, cv):
+            a = torch.zeros((B * n_b + 2, bt, max(nkv, 32), 128),
+                            dtype=c.dtype, device=cuda)
+            a[table.long(), :, :nkv, :dh] = c.reshape(B, n_b, bt, nkv, dh)
+            arenas.append(a)
+        index = (table[:, pos // bt].long(),
+                 torch.full((B,), pos % bt, dtype=torch.long, device=cuda))
+    else:
+        table, arenas = None, [ck, cv]
+        index = torch.tensor([pos % W], device=cuda)
+
+    def views(arenas):
+        return [a[..., :nkv, :dh] for a in arenas] if paged else arenas
+
+    def run(pos_arg):
+        got = [a.clone() for a in arenas]
+        ops.reset_launch_counts()
+        q_out = tdg.rope_qk_write_cuda(q, k, v, pos_arg, freqs, *views(got),
+                                       table)
+        assert ops.launch_counts()["rope_qk_write"] == 1
+        return q_out, got
+
+    q_got, got = run(torch.tensor(pos, dtype=torch.int32, device=cuda))
+    q_host, got_host = run(pos)
+    assert torch.equal(q_host, q_got)
+    assert all(torch.equal(a, b) for a, b in zip(got, got_host))
+    want = [a.clone() for a in arenas]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=cuda)
+    q_want = tdg.rope_qk_write_plain(q, k, v, positions, *views(want), index,
+                                     1e4)
+    _assert_ulps(q_got, q_want, "q")
+    for name, g, w, a in zip("kv", got, want, arenas):
+        changed = (g != a).any(dim=(-2, -1))
+        hit = torch.zeros_like(changed)
+        if paged:
+            hit[index] = True
+        else:
+            hit[:, pos % W] = True
+        assert not (changed & ~hit).any(), f"{name}: another slot changed"
+        if name == "v":
+            assert torch.equal(g, w)
+        else:
+            _assert_ulps(g, w, "k")
+
+
+@pytest.mark.cuda
+def test_captured_bloom3b_generate_takes_the_glue_kernels(cuda):
+    """Full-width BLOOM-3B at W8A16 (short prompts and caps): generate's
+    captured loop equals generate_reference token for token; its step
+    holds at most 600 kernel nodes (about 2,300 as op chains) and launches
+    add_norm 2L + 1 and rope_qk_write L times a step."""
+    import gc
+    from repro_torch.config import get_arch
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(get_arch("bloom-3b"), batch_capacity=8, s_max=64,
+                        n_max=16, quant_bits=8, seed=2, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 250000, size=n).tolist()
+               for n in (5, 64, 9, 33, 1, 17, 48, 2)]
+    caps = [16, 3, 9, 16, 1, 12, 16, 7]
+    a = eng.generate(prompts, caps)
+    b = eng.generate_reference(prompts, caps)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    L = eng.cfg.n_layers
+    loop = eng._gen.graphs[eng._canon_bits(8)]
+    assert loop.launches["add_norm"] == 2 * L + 1
+    assert loop.launches["rope_qk_write"] == L
+    assert loop.launches["flash_decode"] == L
+    assert eng.captures[-1]["nodes"] <= 600, eng.captures[-1]
+    del eng, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_paged_engine_equals_slab_engine_on_the_card(cuda):
     from repro_torch.serving.engine import tiny_engine
@@ -878,6 +1034,8 @@ def test_fused_engine_on_the_card(cuda):
         assert counts["flash_decode_fused"] > 0
         assert counts["flash_decode_fused_paged"] > 0
         assert counts["flash_decode"] == counts["flash_decode_paged"] == 0
+        # the norm half of the decode glue only: K6/K7 do their own rope
+        assert counts["add_norm"] > 0 and counts["rope_qk_write"] == 0
 
 
 # -- the decode position on the device: bitwise the host-int step ---------
@@ -911,7 +1069,8 @@ def host_int_attention(p, cfg, x, ck, cv, pos: int):
     """The decode attention a host-int position drove before the position
     moved to the device: Python-int cache slot, valid counts, evicted slot
     and rope angles (``freqs * float(pos)``), the kernels taking them as
-    scalars on CUDA, or their plain versions on the CPU."""
+    scalars on CUDA (rope_qk_write its position), or their plain versions
+    on the CPU."""
     B, W = x.shape[0], ck.shape[1]
     cuda = x.is_cuda
     if ops.fusable_decode(p, cfg):
@@ -928,28 +1087,36 @@ def host_int_attention(p, cfg, x, ck, cv, pos: int):
         cv[:, pos % W] = v1.to(cv.dtype)
         return o[:, None]
     from repro_torch.models import common
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k1, v1 = common.qkv_proj(p, cfg, x, positions)
-    ck[:, pos % W] = k1[:, 0].to(ck.dtype)
-    cv[:, pos % W] = v1[:, 0].to(cv.dtype)
+    q, k1, v1 = common.qkv_proj(p, cfg, x, None, use_rope=False)
+    if cuda:
+        q = tdg.rope_qk_write_cuda(
+            q, k1, v1, pos, tdg.rope_table(cfg.d_head, cfg.rope_theta,
+                                           x.device), ck, cv)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int32)
+        q = tdg.rope_qk_write_plain(q, k1, v1, positions, ck, cv,
+                                    torch.tensor([pos % W]), cfg.rope_theta)
     attend = tfd.flash_decode_cuda if cuda else tfd.flash_decode_plain
     out = attend(q[:, 0].contiguous(), ck, cv, min(pos + 1, W))[:, None]
     return common.mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
 
 
 def host_int_step(cfg, params, cache, tokens, pos: int):
-    """The host-int decode step (its layers around ``host_int_attention``)
-    over a slab cache, updated in place; returns the logits."""
+    """The host-int decode step (its layers around ``host_int_attention``,
+    each residual add with the norm after it through ``add_norm``) over a
+    slab cache, updated in place; returns the logits."""
     from repro_torch.models import common, transformer
     x = transformer._table(params)[tokens]
-    for lp, layer in zip(params["layers"], cache):
-        h = common.apply_norm(cfg.norm, lp["norm1"], x)
-        x = x + host_int_attention(lp["attn"], cfg, h, layer["k"],
-                                   layer["v"], pos)
-        h = common.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + common.ffn_apply(lp["ffn"], cfg, h)
-    x = common.apply_norm(cfg.norm, params["final_norm"], x)
-    return transformer._unembed(cfg, params, x)[:, 0]
+    norm = tdg.add_norm_cuda if x.is_cuda else tdg.add_norm_plain
+    norms = [lp["norm1"] for lp in params["layers"]] + [params["final_norm"]]
+    x, h = norm(x, None, norms[0], cfg.norm)
+    for l, (lp, layer) in enumerate(zip(params["layers"], cache)):
+        x, h = norm(x, host_int_attention(lp["attn"], cfg, h, layer["k"],
+                                          layer["v"], pos),
+                    lp["norm2"], cfg.norm)
+        x, h = norm(x, common.ffn_apply(lp["ffn"], cfg, h), norms[l + 1],
+                    cfg.norm)
+    return transformer._unembed(cfg, params, h)[:, 0]
 
 
 def _pos_inputs(eng, seed):
