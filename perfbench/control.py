@@ -7,13 +7,14 @@ control's, seed by seed, in one process.
 For each seed the cell runs as the benchmark runs it (a short window at
 the cell's own load and sizes) and its checked sample's widest gap is
 the program's reading.  On the same sample, the control puts the
-reference at the next precision below the served one (int4 weights for
-int8) in the program's place: it serves, at each position of the same
-prompts and tokens, the token that the lower precision ranks first, and
-those rows go through the same comparison and judgement as the
-program's (``check.served_gaps``, ``check.judge``).  A limit lies above
-every sound reading of the program and below the control's; the script
-exits with 1 where a control came out correct or the program did not.
+reference at the next precision below each row's served one (weights
+one step down: int4 for int8; activations as served) in the program's
+place: it serves, at each position of the same prompts and tokens, the
+token that the lower precision ranks first, and those rows go through
+the same comparison and judgement as the program's
+(``check.served_gaps``, ``check.judge``).  A limit lies above every
+sound reading of the program and below the control's; the script exits
+with 1 where a control came out correct or the program did not.
 """
 from __future__ import annotations
 
@@ -22,8 +23,6 @@ import json
 import os
 import sys
 import time
-
-LOWER_BITS = {8: 4, 16: 8, 0: 8}
 
 
 def main(argv=None) -> int:
@@ -51,7 +50,7 @@ def main(argv=None) -> int:
         res = run_cell(args.workload, seed, args.seconds, False,
                        time.perf_counter(), keep=keep)
         prog = res["checks"]["gap_max"]["value"]
-        ctrl = check.control_verdict(keep, LOWER_BITS[keep["bits"]])
+        ctrl = check.control_verdict(keep)
         rec = dict(seed=seed, program=prog, control=ctrl["worst"],
                    rows=[float(g.max()) for g in keep["gaps"]],
                    tokens=sum(len(g) for g in keep["gaps"]),

@@ -2,19 +2,22 @@
 
 Once the window has closed, a sample of the requests the window finished,
 drawn from the seed, holding the one with the most served tokens and one
-of each batch slot, is run through the float32 reference
-(``perfbench/reference/bloom.py``) over each request's raw prompt (the
-reference pads it itself) and the tokens it was served.  At every served
-token the reference's best logit is compared with the logit of the token
-served: the widest gap, over the sample, is the number judged against
-its limit (``judge``).  A served token that the reference ranks first has
-gap 0; rounding in the served precision moves near-ties, by little.
+of each batch slot, is run through the float32 reference of the cell's
+architecture (its module's ``forward_rows``; the configuration file's
+``"reference"``) over each request's raw prompt (the reference pads it
+itself), the tokens it was served and the precision its call served it
+at.  At every served token the reference's best logit is compared with
+the logit of the token served: the widest gap, over the sample, is the
+number judged against its limit (``judge``).  A served token that the
+reference ranks first has gap 0; rounding in the served precision moves
+near-ties, by little.
 
 The control (``control_rows``) puts the reference at the next precision
-below the served one, int4 weights for int8, in the program's place: at
-each position of the same prompts and served tokens it serves the token
-that the lower precision ranks first, and those rows go through the same
-``served_gaps`` and ``judge`` as the program's.
+below each row's, weights one step down (int8 for full precision, int4
+for int8, int2 for int4) and activations as served, in the program's
+place: at each position of the same prompts and served tokens it serves
+the token that the lower precision ranks first, and those rows go
+through the same ``served_gaps`` and ``judge`` as the program's.
 """
 from __future__ import annotations
 
@@ -23,13 +26,17 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from perfbench.reference.bloom import forward_rows
+LOWER_WEIGHT_BITS = {16: 8, 0: 8, 8: 4, 4: 2}
 
 
-def ref_config(model: Dict, s_max: int) -> Dict:
-    return dict(n_heads=model["n_heads"], d_head=model["d_head"],
-                vocab=model["vocab"], rope_theta=model["rope_theta"],
-                s_max=int(s_max))
+def lower_precision(bits):
+    """The control's precision for a row served at ``bits`` (an int:
+    weight bits; a pair: weight and activation bits): weights one step
+    down (full precision to int8, int8 to int4, int4 to int2),
+    activations as served."""
+    if isinstance(bits, (tuple, list)):
+        return (LOWER_WEIGHT_BITS[bits[0]], bits[1])
+    return LOWER_WEIGHT_BITS[bits]
 
 
 def sample_rows(rows: Sequence[Dict], n: int, seed: int) -> List[Dict]:
@@ -56,19 +63,21 @@ def sample_rows(rows: Sequence[Dict], n: int, seed: int) -> List[Dict]:
 
 
 def _ref_rows(rows: Sequence[Dict]) -> List[Dict]:
-    """The reference's rows: the prompt, the gap, and the tokens fed back
-    (the served tokens but the last, unless the row says otherwise)."""
+    """The reference's rows: the prompt, the gap, the tokens fed back
+    (the served tokens but the last, unless the row says otherwise) and
+    the precision the row was served at."""
     return [dict(prompt=r["prompt"], gap=r["gap"],
-                 fed=np.asarray(r.get("fed", r["tokens"][:-1])))
+                 fed=np.asarray(r.get("fed", r["tokens"][:-1])),
+                 bits=r["bits"])
             for r in rows]
 
 
-def served_gaps(params: Dict, model: Dict, s_max: int,
-                rows: Sequence[Dict], bits: int, device) -> List[np.ndarray]:
-    """Per row, the gap of each served token below the reference's best
-    logit at its position."""
-    logits = forward_rows(params, ref_config(model, s_max), _ref_rows(rows),
-                          bits=bits, device=device)
+def served_gaps(arch_mod, params: Dict, model: Dict, s_max: int,
+                rows: Sequence[Dict], device) -> List[np.ndarray]:
+    """Per row, the gap of each served token below the best logit of the
+    reference (``arch_mod.forward_rows``) at its position."""
+    logits = arch_mod.forward_rows(params, model, s_max, _ref_rows(rows),
+                                   device)
     out = []
     for lg, r in zip(logits, rows):
         tok = torch.as_tensor(np.asarray(r["tokens"]), dtype=torch.long,
@@ -88,24 +97,24 @@ def judge(gaps: Sequence[np.ndarray], limit: float) -> Dict:
                 tokens=sum(len(g) for g in gaps))
 
 
-def control_rows(params: Dict, model: Dict, s_max: int,
-                 rows: Sequence[Dict], lower_bits: int,
-                 device) -> List[Dict]:
-    """The rows the control serves: the same prompts, gaps and fed
-    tokens, and at each position the token that the reference at
-    ``lower_bits`` ranks first."""
+def control_rows(arch_mod, params: Dict, model: Dict, s_max: int,
+                 rows: Sequence[Dict], device) -> List[Dict]:
+    """The rows the control serves: the same prompts, gaps, fed tokens
+    and precisions, and at each position the token that the reference at
+    the row's lower precision (``lower_precision``) ranks first."""
     rr = _ref_rows(rows)
-    low = forward_rows(params, ref_config(model, s_max), rr,
-                       bits=lower_bits, device=device)
+    low = arch_mod.forward_rows(
+        params, model, s_max,
+        [dict(r, bits=lower_precision(r["bits"])) for r in rr], device)
     return [dict(r, tokens=lg.argmax(-1).cpu().numpy())
             for r, lg in zip(rr, low)]
 
 
-def control_verdict(keep: Dict, lower_bits: int) -> Dict:
+def control_verdict(keep: Dict) -> Dict:
     """The control's verdict on the sample a run kept (``run_cell``'s
-    ``keep``): its rows judged as the program's are."""
-    rows = control_rows(keep["params"], keep["model"], keep["s_max"],
-                        keep["sample"], lower_bits, keep["device"])
-    gaps = served_gaps(keep["params"], keep["model"], keep["s_max"], rows,
-                       keep["bits"], keep["device"])
-    return judge(gaps, keep["limit"])
+    ``keep``): its rows judged as the program's are, each at the
+    precision it was served at."""
+    args = (keep["arch_module"], keep["params"], keep["model"],
+            keep["s_max"])
+    rows = control_rows(*args, keep["sample"], keep["device"])
+    return judge(served_gaps(*args, rows, keep["device"]), keep["limit"])

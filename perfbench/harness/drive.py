@@ -135,13 +135,19 @@ class Recorder:
 
 
 class TimedPolicy(SchedulerPolicy):
-    """Delegates to the cell's policy; times each call."""
+    """Delegates to the cell's policy; times each call.  What else the
+    runtime reads or installs on its policy (``split``, ``calib``, the
+    measured coefficients and swap costs) is the cell's policy's."""
 
     def __init__(self, inner: SchedulerPolicy, rec: Recorder):
         self.inner = inner
         self.rec = rec
         self.name = inner.name
-        self.split = getattr(inner, "split", False)
+
+    def __getattr__(self, name):
+        if name == "inner":             # not yet set
+            raise AttributeError(name)
+        return getattr(self.inner, name)
 
     @property
     def spec(self) -> str:
@@ -195,6 +201,7 @@ class TimedEngine(ServingEngine):
         rec.note(steps=(0, steps), prefills=1,
                  tokens=int(res.lengths.sum()))
         fl = 0
+        bits = self._gen.bits                # as the engine resolved it
         for i, p in enumerate(prompts):
             n = int(res.lengths[i])
             s = min(len(p), self.s_max)
@@ -202,7 +209,7 @@ class TimedEngine(ServingEngine):
             if rec.open_window:
                 rec.rows.append(dict(prompt=list(p), gap=0,
                                      tokens=res.tokens[i, :n].copy(),
-                                     slot=i))
+                                     slot=i, bits=bits))
         rec.note(flops=fl)
         return res
 
@@ -220,7 +227,7 @@ class TimedEngine(ServingEngine):
             fl += self.rec.flops(s, None, None)
         self.rec.note(prefills=1, flops=fl)
         self.rec.last_admit = dict(slots=list(slots), prompts=list(prompts),
-                                   gap=gap)
+                                   gap=gap, bits=state.bits)
 
     def start_chunked(self, prompts, n_tokens=None, quant_bits=None,
                       arena=None, prefixes=None):
@@ -319,7 +326,8 @@ class TimedContinuousExecutor(EngineContinuousExecutor):
             if adm is not None and len(adm["prompts"]) == len(pending) \
                     and resume is None:
                 self.meta[r.rid] = dict(prompt=adm["prompts"][i],
-                                        gap=adm["gap"], slot=slot)
+                                        gap=adm["gap"], slot=slot,
+                                        bits=adm["bits"])
         t1 = time.perf_counter()
         for _, r, _ in finished:
             t0 = self.admitted_at.pop(r.rid, None)
@@ -329,7 +337,8 @@ class TimedContinuousExecutor(EngineContinuousExecutor):
             if meta is not None and r.rid in self.outputs:
                 rec.rows.append(dict(
                     prompt=list(meta["prompt"]), gap=meta["gap"],
-                    tokens=self.outputs.pop(r.rid), slot=meta["slot"]))
+                    tokens=self.outputs.pop(r.rid), slot=meta["slot"],
+                    bits=meta["bits"]))
         call["requests"] = len(finished)
         rec.end_call(call)
         return finished, occ

@@ -49,7 +49,7 @@ class RunView:
         self.engine = cell["config"]["engine"]
         self.runtime = cell["traffic"]["runtime"]
         self.rec = rec
-        self.engine_info = engine_info       # the decode tier
+        self.engine_info = engine_info       # the decode tier, the captures
         self.arena = arena                   # alloc_peak, total_pages
         self.kernels: List[tuple] = []
         self.annots: List[tuple] = []

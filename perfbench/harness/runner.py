@@ -2,7 +2,6 @@
 the check against the reference, and the result line."""
 from __future__ import annotations
 
-import copy
 import gc
 import statistics
 import subprocess
@@ -13,43 +12,31 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from perfbench.costs import model_flops
 from perfbench.harness import bench, check
 from perfbench.harness.drive import (Recorder, TimedContinuousExecutor,
                                      TimedEngine, TimedEpochExecutor,
                                      TimedPolicy, WindowClosed)
 from perfbench.harness.records import RunView
 from perfbench.harness.traffic import PoissonTraffic
-from perfbench.harness.weights import make_params
 
-MODEL_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
-              "d_ff", "vocab", "norm", "act", "tie_embeddings", "rope_theta",
-              "dtype")
 EPOCHS = 1_000_000            # more than any window holds; the window ends
                               # the run
 
 
-def port_config(model: Dict, arch: str, reduced: bool):
-    """The program's configuration of ``arch``; it has to be the file's
-    (a reduced one for the CPU tests is cut to the file's sizes)."""
+def port_config(arch_mod, model: Dict, arch: str, reduced: bool):
+    """The program's configuration of ``arch``; it has to hold the sizes
+    of the file's "model" block, as the architecture's module
+    ``arch_mod`` compares them (a reduced one for the CPU tests is cut to
+    them)."""
     from repro_torch.config import get_arch
     cfg = get_arch(arch)
     if reduced:
-        cfg = cfg.scaled(**{k: model[k] for k in MODEL_KEYS})
-    have = {k: getattr(cfg, k) for k in MODEL_KEYS}
-    want = {k: model[k] for k in MODEL_KEYS}
+        cfg = arch_mod.scaled_program(cfg, model)
+    have, want = arch_mod.program_sizes(cfg), arch_mod.file_sizes(model)
     if have != want:
         raise ValueError(f"the program's {arch} is not the configuration "
                          f"file's: {have} != {want}")
     return cfg
-
-
-def _merged(base: Dict, over: Dict) -> Dict:
-    out = copy.deepcopy(base)
-    for k, v in over.items():
-        out[k] = _merged(out[k], v) if isinstance(v, dict) \
-            and isinstance(out.get(k), dict) else v
-    return out
 
 
 def _percentile(xs, q):
@@ -80,16 +67,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
              keep: Optional[Dict] = None) -> Dict:
     """Run cell ``name``; returns the result line's object.  ``override``
     (CPU tests only) replaces parts of the cell's files; ``keep``, where
-    given, receives the weights, the checked sample and its gaps (for the
-    control's readings, ``perfbench/control.py``)."""
-    cell = bench.load_cell(name)
-    if override:
-        cell = _merged(cell, override)
+    given, receives the architecture's module, the weights, the checked
+    sample and its gaps (for the control's readings,
+    ``perfbench/control.py``)."""
+    cell = bench.load_cell(name, override)
     conf, mix = cell["config"], cell["traffic"]
+    arch_mod = cell["arch_module"]
     model, eng_kw = conf["model"], conf["engine"]
     on_cuda = device == "cuda"
     dev = torch.device(device)
-    cfg = port_config(model, conf["arch"], reduced=bool(override))
+    cfg = port_config(arch_mod, model, conf["arch"], reduced=bool(override))
 
     from repro_torch.core.environment import h100_env
     from repro_torch.core.policy import get_policy
@@ -99,8 +86,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     def flops(s, j0, j1):
         if j0 is None:
-            return model_flops.prompt_flops(model, s)
-        return model_flops.tokens_flops(model, s, j0, j1)
+            return arch_mod.prompt_flops(model, s)
+        return arch_mod.tokens_flops(model, s, j0, j1)
 
     rt = mix["runtime"]
     profile_calls = (0, 0)
@@ -122,7 +109,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     # -- set-up: weights from the seed, the engine, the control plane --------
     marks = [("start", time.perf_counter())]
-    params = make_params(model, seed, dev)
+    params = arch_mod.make_params(model, seed, dev)
     if on_cuda:
         torch.cuda.synchronize()
     marks.append(("weights", time.perf_counter()))
@@ -193,7 +180,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     memory_peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     arena_info = None if arena is None else dict(
         alloc_peak=arena.alloc_peak, total_pages=arena.total_pages)
-    view = RunView(cell, rec, dict(tier=engine.decode_tier()), arena_info)
+    view = RunView(cell, rec, dict(tier=engine.decode_tier(),
+                                   captures=list(engine.captures)),
+                   arena_info)
     caps = [c["ms"] for c in engine.captures]
     print(f"captures in the run: {len(caps)}, ms: "
           f"{[round(x, 1) for x in caps[-6:]]}; slowest requests ms: "
@@ -250,12 +239,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     lim = cell["limits"]["gap_max"]["limit"]
     rows = check.sample_rows(rec.rows, int(mix["sample"]), seed)
-    gaps = check.served_gaps(params, model, eng_kw["s_max"], rows,
-                             bits=eng_kw["quant_bits"], device=dev)
+    gaps = check.served_gaps(arch_mod, params, model, eng_kw["s_max"], rows,
+                             device=dev)
     verdict = check.judge(gaps, lim)
     if keep is not None:
-        keep.update(params=params, model=model, s_max=eng_kw["s_max"],
-                    sample=rows, gaps=gaps, bits=eng_kw["quant_bits"],
+        keep.update(arch_module=arch_mod, params=params, model=model,
+                    s_max=eng_kw["s_max"], sample=rows, gaps=gaps,
                     limit=lim, device=dev)
     checks = {"gap_max": {"value": verdict["worst"], "limit": lim}}
     print(f"compared {verdict['tokens']} served tokens of {len(rows)} "

@@ -1,7 +1,8 @@
 """The whole serving step's share of the card's bf16 dense peak: the
 model FLOPs of the served rows (prompt tokens at min(s, s') and
-generated tokens, ``perfbench/costs/model_flops.py``) over the traced
-run's window less its profiled sub-window, over 989e12 FLOP/s."""
+generated tokens, counted by the ``prompt_flops`` and ``tokens_flops``
+of the cell's architecture module) over the traced run's window less
+its profiled sub-window, over 989e12 FLOP/s."""
 from perfbench.harness.peaks import BF16_FLOPS
 
 

@@ -15,9 +15,26 @@ Adding to the benchmark takes new files and new ``BENCHMARK.json``
 entries, and no edit of a file that is there:
 
 - a configuration: ``perfbench/configs/<name>.json`` (the program's arch
-  id, its published source, the model's sizes as served, the engine's
-  shape, the cost model and the deployed method, ``reduced`` and
-  ``assumed``) and a ``configs`` entry naming it;
+  id, its published source, its architecture's module under
+  ``"reference"``, the model's sizes as served, the engine's shape, the
+  cost model and the deployed method, ``reduced`` and ``assumed``) and
+  a ``configs`` entry naming it;
+- an architecture: one module, ``perfbench/reference/<name>.py``, named
+  by the path from the checkout's root in each of its configurations'
+  ``"reference"`` and loaded by that path.  It imports torch and the
+  standard library, and nothing of JAX, of the JAX package or of the
+  program, and gives: ``file_sizes(model)`` and ``program_sizes(cfg)``
+  (the sizes that the configuration file's "model" block and the
+  program's configuration have to agree on) and ``scaled_program(cfg,
+  model)`` (the program's configuration cut to the file's sizes, for
+  the CPU tests); ``make_params(model, seed, device)`` (the raw weight
+  tree in the program's serving layout, drawn from the seed on the
+  device); ``forward_rows(params, model, s_max, rows, device)`` (float32
+  logits, TF32 off, at every served position of each row {"prompt",
+  "gap", "fed", "bits"}, each at the precision spec ``bits`` its call
+  was served at, as the engine resolves it: weight bits, or a (weight,
+  activation) pair); ``prompt_flops(model, s)`` and ``tokens_flops(
+  model, s, j0, j1)`` (the model FLOPs of served tokens);
 - a traffic mix: ``perfbench/traffic/<name>.json`` (the arrivals'
   parameters, the policy spec, the runtime path with its settings, the
   size of the checked sample and the calls the traced run profiles),

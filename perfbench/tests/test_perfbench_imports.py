@@ -37,7 +37,7 @@ def _loaded_after(code: str):
 def test_harness_loads_no_jax():
     mods = _loaded_after(
         "import perfbench.harness.runner, perfbench.harness.check, "
-        "perfbench.reference.bloom, perfbench.costs.model_flops, "
+        "perfbench.reference.bloom, "
         "perfbench.costs.k1_gemv, perfbench.costs.qmm_tc, "
         "perfbench.costs.k4, perfbench.costs.k5, perfbench.costs.k6\n"
         "from perfbench.harness import bench\n"

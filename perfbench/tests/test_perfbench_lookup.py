@@ -109,7 +109,8 @@ def test_configs_are_the_programs():
     from perfbench.harness.runner import port_config
     for conf in B["configs"]:
         data = json.loads((ROOT / conf["file"]).read_text())
-        cfg = port_config(data["model"], data["arch"], reduced=False)
+        mod = bench.arch_module(data, conf["file"])
+        cfg = port_config(mod, data["model"], data["arch"], reduced=False)
         assert cfg.arch_id == data["arch"]
 
 

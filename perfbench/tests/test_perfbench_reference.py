@@ -19,23 +19,22 @@ from torch.utils.flop_counter import FlopCounterMode
 ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from perfbench.costs import k1_gemv, k4, k5, k6, model_flops, qmm_tc  # noqa
+from perfbench.costs import k1_gemv, k4, k5, k6, qmm_tc  # noqa: E402
 from perfbench.harness.check import served_gaps  # noqa: E402
-from perfbench.harness.weights import make_params  # noqa: E402
+from perfbench.reference import bloom  # noqa: E402
 from perfbench.reference.bloom import (fake_quant, forward_rows,  # noqa
-                                       pad_left)
+                                       make_params, pad_left)
 
 torch.set_num_threads(1)
 
 MODEL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
              d_ff=256, vocab=512, norm="layernorm", act="gelu",
              tie_embeddings=True, rope_theta=10000.0, dtype="float32")
-REF = dict(n_heads=4, d_head=16, vocab=512, rope_theta=10000.0, s_max=16)
 
 
 def _cfg():
     from perfbench.harness.runner import port_config
-    return port_config(MODEL, "bloom-3b", reduced=True)
+    return port_config(bloom, MODEL, "bloom-3b", reduced=True)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -53,8 +52,8 @@ def test_reference_logits_match_the_program_forward(seed):
     tokens = rng.integers(0, 512, size=(2, 24))
     got = transformer.forward(_cfg(), params,
                               {"tokens": torch.from_numpy(tokens)})
-    rows = [dict(prompt=t[:16], gap=0, fed=t[16:]) for t in tokens]
-    ref = forward_rows(params, REF, rows, bits=0)
+    rows = [dict(prompt=t[:16], gap=0, fed=t[16:], bits=0) for t in tokens]
+    ref = forward_rows(params, MODEL, 16, rows)
     for b in range(2):
         torch.testing.assert_close(ref[b], got[b, 15:, :512], rtol=1e-4,
                                    atol=1e-4)
@@ -92,10 +91,11 @@ def test_served_tokens_agree_slab_and_refill():
     for _ in range(3):
         st = eng.generate_chunked(st, 4)
     out, lengths, _, _ = eng.poll_chunked(st)
-    rows = [dict(prompt=prompts[i], gap=g, tokens=out[slot, :lengths[slot]])
+    rows = [dict(prompt=prompts[i], gap=g, tokens=out[slot, :lengths[slot]],
+                 bits=8)
             for i, (slot, g) in enumerate([(0, 0), (1, 0), (2, 4)])]
     assert [len(r["tokens"]) for r in rows] == [12, 12, 8]
-    gaps = served_gaps(params, MODEL, 16, rows, bits=8, device="cpu")
+    gaps = served_gaps(bloom, params, MODEL, 16, rows, device="cpu")
     assert max(float(g.max()) for g in gaps) <= 1e-4
     slab = eng.generate(prompts[:2], [12, 12])
     assert np.array_equal(slab.tokens, out[:2, :12])
@@ -157,7 +157,7 @@ def test_model_flops_by_count():
     want = s * per + 4 * 64 * sum(range(1, s + 1)) + 2 * D * V
     want += (n - 1) * (per + 2 * D * V) + 4 * 64 * sum(s + j
                                                       for j in range(1, n))
-    assert model_flops.request_flops(m, s, n) == want
-    assert model_flops.tokens_flops(m, s, 0, 2) \
-        + model_flops.tokens_flops(m, s, 2, n) == \
-        model_flops.decode_flops(m, s, n)
+    assert bloom.request_flops(m, s, n) == want
+    assert bloom.tokens_flops(m, s, 0, 2) \
+        + bloom.tokens_flops(m, s, 2, n) == \
+        bloom.decode_flops(m, s, n)

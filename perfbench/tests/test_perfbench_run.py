@@ -151,7 +151,7 @@ def test_control_fails_where_the_program_passes(cell):
     r = run_cell(cell, 2 ** 31 + 21, 1.0, False, time.perf_counter(),
                  device="cpu", override=tiny(), keep=keep)
     assert r["correct"] is True
-    ctrl = control_verdict(keep, 4)
+    ctrl = control_verdict(keep)
     assert ctrl["correct"] is False
     assert ctrl["worst"] > TINY_LIMIT and ctrl["failed"] > 0
 
