@@ -57,6 +57,10 @@ Phases (any failure exits non-zero and prints no result):
    qwen3-1.7b's (16 x 128 over 8) and granite-moe-1b-a400m's (16 x 64 over
    8) geometry, K5 at qwen3's; K1 and K2 at granite's router (K 1024, N
    32) on the GEMVs at decode and the tensor cores at prefill, K2 bitwise.
+   The decode glue (``add_norm``, ``rope_qk_write``) at BLOOM-3B's,
+   BLOOM-7B1's and Zamba2-7B-Instruct's widths (RMSNorm at 3584 and at
+   7168, 32 heads of 224), and ``mamba2_decode`` at Zamba2-7B-Instruct's
+   decode layer against ``mamba2.decode_between``, its op chain.
 4. Small reference: reduced float32 BLOOM-3B (all precisions) and
    BLOOM-7B1 (d_head 128, the fused tier at W8A16 and W8A8) served on the
    card through the kernels give the same greedy tokens as the same
@@ -158,8 +162,15 @@ Phases (any failure exits non-zero and prints no result):
    share; one step traced (top 15 device ops); the device memory peak.
    The small-reference phase (4) also serves the three reduced at float32
    (xlstm-1.3b at 9 layers, zamba2-7b at 13): card == CPU tokens at every
-   precision.
-10. Training (M10), after zamba2-7b is freed and outside ``no_grad``;
+   precision.  Then zamba2-7b-instruct, the published block (81 Mamba2
+   layers of two groups, two shared blocks at 13 sites over concat(x,
+   embedding)), W8A16: ``generate == generate_reference`` on the first
+   ``generate`` after its capture; ``dftsp`` epochs counted on their own
+   (``mamba2_decode``, ``add_norm``, ``rope_qk_write`` and the device loop
+   launch, no K1-K7 counter moves: its KERNELS rows' launches); one decode
+   step's kernel calls and its eager and device ms; the memory peak.
+10. Training (M10), after zamba2-7b-instruct is freed and outside
+   ``no_grad``;
    float weights, so no K1-K7 counter (nor the decode loop) may move.
    (a) One reduced float32 model of each family (olmo-1b, qwen3-1.7b,
    granite-moe-1b-a400m, internvl2-26b, xlstm-1.3b and zamba2-7b with
@@ -249,6 +260,10 @@ ATTN_DEEPSEEK = dict(ATTN7, D=7168, nh=56, nkv=8)
 FAMILY_ATTN = {"qwen3": (ATTN_QWEN3, 22), "granite": (ATTN_GRANITE, 23)}
 # granite-moe-1b-a400m's router: d_model 1024 -> 32 experts
 ROUTER_MATMULS = [("router", 1024, 32)]
+# Zamba2-7B-Instruct's decode step (B = 8, W = 640): a site's attention
+# (32 heads of 224 over 32, from the 7168-wide concat(x, embedding)) and
+# the widths of its RMSNorms (3584; 7168 over the concatenation)
+ATTN_ZAMBA2 = dict(ATTN, D=3584, nh=32, nkv=32, dh=224)
 # the new configs of the port, each reduced for the small-reference phase
 FAMILY_ARCHS = ("deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
                 "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b")
@@ -1216,49 +1231,67 @@ def _ulp_err(got, want) -> float:
                                              - 7)).max())
 
 
-def decode_glue_phase(shape=ATTN, D=2560, seed=51):
-    """The decode glue at one model's decode widths (B = 8, bf16): add_norm
-    (the residual add and a LayerNorm with its weight, D) and rope_qk_write
-    (q, k of nh, nkv heads of dh rotated at a device position, k and v
-    written into a slab of W slots), each against its plain version (the
-    op chain it replaces: x_new bitwise, h, q and the written k within one
-    bf16 ulp, v bitwise) and timed beside its bytes bound, the chain and,
-    for add_norm, ``x + y`` then ``F.layer_norm`` as the library's
-    yardstick.  The operands are the few kilobytes a decode step's GEMVs
-    have just written: they are not rotated out of the L2."""
+def add_norm_case(B, D, seed, kind="layernorm", add=True):
+    """add_norm at one decode width (B rows of D, bf16) against its plain
+    version (x_new bitwise, h within one bf16 ulp) and timed beside its
+    bytes bound, the op chain and the library's ``x + y`` then
+    ``F.layer_norm`` / ``F.rms_norm``; ``add`` False: the norm of x alone
+    (no residual add, x_new is x)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_glue as dg
-    B, nh, nkv, dh, W = (shape[k] for k in ("B", "nh", "nkv", "dh", "W"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)
                 ).to(torch.bfloat16)
-    x, y = randn(B, 1, D), randn(B, 1, D, scale=2.0)
-    w, bias = 1 + randn(D, scale=0.1).float(), torch.zeros(D, device=dev)
-    w = w.to(torch.bfloat16)
-    got_x, got_h = dg.add_norm_cuda(x, y, w, "layernorm")
-    want_x, want_h = dg.add_norm_plain(x, y, w, "layernorm")
+    x = randn(B, 1, D)
+    y = randn(B, 1, D, scale=2.0) if add else None
+    w = (1 + randn(D, scale=0.1).float()).to(torch.bfloat16)
+    got_x, got_h = dg.add_norm_cuda(x, y, w, kind)
+    want_x, want_h = dg.add_norm_plain(x, y, w, kind)
     check(torch.equal(got_x, want_x), "add_norm: x_new is not bitwise x + y")
-    err_n = _ulp_err(got_h, want_h)
-    check(err_n <= 1.0, f"add_norm: h {err_n} bf16 ulps from the chain")
-    lib_h = F.layer_norm(want_x, (D,), w, bias.to(torch.bfloat16), 1e-5)
-    _assert_close(lib_h, want_h, LIBRARY_TOL, "F.layer_norm yardstick")
-    n_bytes = 2 * (5 * B * D + D)                 # x, y, w in; x_new, h out
+    err = _ulp_err(got_h, want_h)
+    check(err <= 1.0, f"add_norm: h {err} bf16 ulps from the chain")
+
+    def library(x, y):
+        x = x if y is None else x + y
+        if kind == "rmsnorm":
+            return F.rms_norm(x, (D,), w, 1e-5)
+        return F.layer_norm(x, (D,), w, None, 1e-5)
+    _assert_close(library(want_x, None), want_h, LIBRARY_TOL,
+                  f"F.{'rms' if kind == 'rmsnorm' else 'layer'}_norm "
+                  f"yardstick")
+    n_bytes = 2 * ((5 if add else 2) * B * D + D)  # x, y, w in; x_new, h out
     b, by = bound_ms(n_bytes, 8.0 * B * D, "bf16")
-    norm = dict(ms=device_ms(lambda i: dg.add_norm_cuda(x, y, w,
-                                                        "layernorm")),
-                plain_ms=device_ms(lambda i: dg.add_norm_plain(
-                    x, y, w, "layernorm")),
-                library_ms=device_ms(lambda i: F.layer_norm(
-                    x + y, (D,), w, None, 1e-5)),
-                library_call="x + y, then torch.nn.functional.layer_norm",
-                bound_ms=b, bound_by=by)
+    return err, dict(
+        ms=device_ms(lambda i: dg.add_norm_cuda(x, y, w, kind)),
+        plain_ms=device_ms(lambda i: dg.add_norm_plain(x, y, w, kind)),
+        library_ms=device_ms(lambda i: library(x, y)),
+        library_call=("x + y, then " if add else "")
+        + f"torch.nn.functional.{'rms' if kind == 'rmsnorm' else 'layer'}"
+          f"_norm", bound_ms=b, bound_by=by,
+        shape=f"add_norm B={B} D={D}, {kind}"
+              + (" with the residual add" if add else ", no add") + ", bf16")
+
+
+def rope_qk_write_case(shape, seed):
+    """rope_qk_write at one decode shape (B rows, q, k of nh, nkv heads of
+    dh rotated at a device position, k and v written into a slab of W
+    slots, bf16) against its plain version (q and the written k within one
+    bf16 ulp, v bitwise, no other slot touched; positions 0, 16, W - 1)
+    and timed beside its bytes bound and the op chain."""
+    from repro_torch.kernels import decode_glue as dg
+    B, nh, nkv, dh, W = (shape[k] for k in ("B", "nh", "nkv", "dh", "W"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     q, k, v = randn(B, 1, nh, dh), randn(B, 1, nkv, dh), randn(B, 1, nkv, dh)
     ck, cv = randn(B, W, nkv, dh), randn(B, W, nkv, dh)
     freqs = dg.rope_table(dh, 1e4, dev)
-    err_r = 0.0
+    err = 0.0
     for p in (0, 16, W - 1):
         pos = torch.tensor(p, dtype=torch.int32, device=dev)
         gk, gv, wk, wv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
@@ -1270,25 +1303,102 @@ def decode_glue_phase(shape=ATTN, D=2560, seed=51):
         check(torch.equal(torch.cat([gk[:, :p], gk[:, p + 1:]], 1),
                           torch.cat([ck[:, :p], ck[:, p + 1:]], 1)),
               f"rope_qk_write: a slot other than {p} changed")
-        err_r = max(err_r, _ulp_err(gq, wq), _ulp_err(gk, wk))
-    check(err_r <= 1.0, f"rope_qk_write: {err_r} bf16 ulps from the chain")
+        err = max(err, _ulp_err(gq, wq), _ulp_err(gk, wk))
+    check(err <= 1.0, f"rope_qk_write: {err} bf16 ulps from the chain")
     pos = torch.tensor(W // 2, dtype=torch.int32, device=dev)
     positions = pos.reshape(1, 1).expand(B, 1)
     slot = torch.tensor([W // 2], device=dev)
     n_bytes = 2 * 2 * B * (nh + 2 * nkv) * dh + 4 * dh // 2
     b, by = bound_ms(n_bytes, 12.0 * B * (nh + nkv) * dh // 2, "bf16")
-    rope = dict(ms=device_ms(lambda i: dg.rope_qk_write_cuda(
-                    q, k, v, pos, freqs, ck, cv)),
-                plain_ms=device_ms(lambda i: dg.rope_qk_write_plain(
-                    q, k, v, positions, ck, cv, slot, 1e4)),
-                library_ms=None, library_call="none (no library rope)",
-                bound_ms=b, bound_by=by)
-    what = f"B={B} D={D}, {nh} x {dh} over {nkv}, W={W}, bf16"
-    return {"add_norm": (err_n, "x_new bitwise; h within one bf16 ulp (in "
-                         "ulps)", dict(norm, shape=f"add_norm {what}")),
-            "rope_qk_write": (err_r, "q and k within one bf16 ulp (in "
-                              "ulps), v bitwise; positions 0, 16, W - 1",
-                              dict(rope, shape=f"rope_qk_write {what}"))}
+    return err, dict(
+        ms=device_ms(lambda i: dg.rope_qk_write_cuda(q, k, v, pos, freqs,
+                                                     ck, cv)),
+        plain_ms=device_ms(lambda i: dg.rope_qk_write_plain(
+            q, k, v, positions, ck, cv, slot, 1e4)),
+        library_ms=None, library_call="none (no library rope)",
+        bound_ms=b, bound_by=by,
+        shape=f"rope_qk_write B={B}, {nh} x {dh} over {nkv}, W={W}, bf16")
+
+
+ADD_NORM_TOL = "x_new bitwise; h within one bf16 ulp (in ulps)"
+ROPE_TOL = ("q and k within one bf16 ulp (in ulps), v bitwise; positions "
+            "0, 16, W - 1")
+
+
+def decode_glue_phase(shape=ATTN, D=2560, seed=51):
+    """The decode glue at one BLOOM model's decode widths (B = 8, bf16):
+    add_norm (the residual add and a LayerNorm with its weight, D) and
+    rope_qk_write, each against its plain version (the op chain it
+    replaces) and timed.  The operands are the few kilobytes a decode
+    step's GEMVs have just written: they are not rotated out of the L2."""
+    err_n, norm = add_norm_case(shape["B"], D, seed)
+    err_r, rope = rope_qk_write_case(shape, seed)
+    return {"add_norm": (err_n, ADD_NORM_TOL, norm),
+            "rope_qk_write": (err_r, ROPE_TOL, rope)}
+
+
+def mamba2_decode_phase(seed=61):
+    """``kops.mamba2_decode`` (``mamba2_scan_step`` + ``mamba2_gate_norm``)
+    at Zamba2-7B-Instruct's decode layer (B = 8, 112 heads of 64, N 64,
+    two groups, conv 4 with bias, bf16; random weights, state and input
+    projection) against its plain version ``mamba2.decode_between`` (the
+    op chain): the conv state bitwise, the SSM state within 1e-6, y within
+    four bf16 ulps of its largest magnitude (the S C sum's order differs).
+    Timed beside its bytes bound (``perfbench/costs/mamba2_decode.py``'s
+    count) and the chain, each over enough states (29 MB each) to rotate
+    them out of the L2; no library computes the step."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba2
+    cfg = get_arch("zamba2-7b-instruct")
+    dt, dev, B = torch.bfloat16, "cuda", BATCH
+    d_inner, H, P, N = mamba2.dims(cfg)
+    G, K, C = cfg.ssm.n_groups, cfg.ssm.conv_width, mamba2.conv_channels(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = mamba2.init_block(cfg, gen, dt)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    p.update(conv_b=(0.1 * rnd(C)).to(dt), D=rnd(H),
+             dt_bias=rnd(H) - 3.0, A_log=torch.log(1 + 15 * rnd(H).abs()),
+             gate_norm=(1 + 0.1 * rnd(d_inner)).to(dt))
+    proj = rnd(B, 1, d_inner + C + H).to(dt)
+    state = {"ssm": 0.5 * rnd(B, H, P, N), "conv": rnd(B, K - 1, C).to(dt)}
+    s1 = {k: v.clone() for k, v in state.items()}
+    s2 = {k: v.clone() for k, v in state.items()}
+    want = mamba2.decode_between(cfg, p, proj, s1)[:, 0]
+    ops.reset_launch_counts()
+    got = ops.mamba2_decode(proj[:, 0], s2["conv"], s2["ssm"], p, G)
+    counts = ops.launch_counts()
+    check(counts["mamba2_scan_step"] == counts["mamba2_gate_norm"] == 1,
+          f"mamba2_decode: launches {counts}")
+    check(torch.equal(s2["conv"], s1["conv"]),
+          "mamba2_decode: conv state not bitwise the chain's")
+    check(torch.allclose(s2["ssm"], s1["ssm"], rtol=1e-6, atol=1e-6),
+          f"mamba2_decode: SSM state "
+          f"{float((s2['ssm'] - s1['ssm']).abs().max()):.3g} from the chain")
+    err = float((got.float() - want.float()).abs().max()) \
+        / (2.0 ** -7 * float(want.float().abs().max()))
+    check(err <= 4.0, f"mamba2_decode: y {err:.3g} bf16 ulps (of its "
+          f"largest magnitude) from the chain")
+    n_state = math.ceil(ROTATE_BYTES / (4 * B * H * P * N))
+    states = [({k: v.clone() for k, v in state.items()},
+               {k: v.clone() for k, v in state.items()})
+              for _ in range(n_state)]
+    d_inner_b = 2 * B * d_inner
+    n_bytes = (8 * B * H * P * N + 2 * B * (d_inner + C + H)
+               + 4 * B * (K - 1) * C + 2 * (K + 1) * C + 12 * H
+               + 2 * d_inner + d_inner_b)
+    b, by = bound_ms(n_bytes, 5.0 * B * H * P * N, "bf16")
+    t = dict(ms=device_ms(lambda i: ops.mamba2_decode(
+                 proj[:, 0], states[i][0]["conv"], states[i][0]["ssm"], p,
+                 G), n_state),
+             plain_ms=device_ms(lambda i: mamba2.decode_between(
+                 cfg, p, proj, states[i][1]), n_state),
+             library_ms=None, library_call="none (no library Mamba2 step)",
+             bound_ms=b, bound_by=by)
+    return err, ("conv state bitwise, SSM state within 1e-6, y within 4 "
+                 "bf16 ulps of its largest magnitude (in those ulps)"), t
 
 
 KERNELS = [
@@ -1406,6 +1516,22 @@ KERNELS = [
     ("decode_glue_rope_qk_write_bloom7b1", "rope_qk_write",
      "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:96",
      "bloom7b1_continuous_auto_measured"),
+    # Zamba2-7B-Instruct's decode step: the glue at its widths (RMSNorm at
+    # 3584 after a residual add, at 7168 over a site's concatenation; a
+    # site's 32 x 224 rope and write) and the Mamba2 step between the
+    # projections (no Pallas kernel: XLA runs the JAX package's chain)
+    ("decode_glue_add_norm_zamba2", "add_norm",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:66",
+     "zamba2i_dftsp_w8a16"),
+    ("decode_glue_add_norm_zamba2_concat", "add_norm",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:66",
+     "zamba2i_dftsp_w8a16"),
+    ("decode_glue_rope_qk_write_zamba2", "rope_qk_write",
+     "src/repro_torch/csrc/decode_glue.cu", "src/repro/models/common.py:96",
+     "zamba2i_dftsp_w8a16"),
+    ("mamba2_decode", "mamba2_scan_step",
+     "src/repro_torch/csrc/mamba2_decode.cu",
+     "src/repro/models/mamba2.py:203", "zamba2i_dftsp_w8a16"),
 ]
 
 
@@ -1453,8 +1579,12 @@ def kernel_phase(parent=None):
                 fused[k][2]["parent" + tag + "_ms"] = parent_ms["fused"][k + tag]
     glue = {"": decode_glue_phase(),
             "_bloom7b1": decode_glue_phase(ATTN7, D=ATTN7["D"], seed=52)}
+    zamba2 = zamba2_kernel_rows()
     for name, counter, *_ in KERNELS:
-        if counter in ("add_norm", "rope_qk_write"):
+        if name in zamba2:
+            err, tol, t = zamba2[name]
+            shape = t.pop("shape")
+        elif counter in ("add_norm", "rope_qk_write"):
             err, tol, t = glue["_bloom7b1" if name.endswith("_bloom7b1")
                                else ""][counter]
             shape = t.pop("shape")
@@ -1579,6 +1709,45 @@ def kernel_phase(parent=None):
                f"{json.dumps(t['parent_calls_ms'])}"
                if "parent_calls_ms" in t else ""))
     return results
+
+
+def zamba2_kernel_rows():
+    """The rows of KERNELS at Zamba2-7B-Instruct's decode widths: (err,
+    tolerance, timings with their "shape") by name."""
+    Z = ATTN_ZAMBA2
+    err_m, tol_m, t_m = mamba2_decode_phase()
+    t_m["shape"] = ("one Zamba2-7B-Instruct Mamba2 layer's decode step "
+                    "between its projections: B=8, 112 heads of 64, N=64, "
+                    "2 groups, conv 4 with bias, bf16")
+    rows = {"mamba2_decode": (err_m, tol_m, t_m)}
+    for name, D, add, seed in (("decode_glue_add_norm_zamba2", Z["D"], True,
+                                53),
+                               ("decode_glue_add_norm_zamba2_concat",
+                                2 * Z["D"], False, 54)):
+        err, t = add_norm_case(Z["B"], D, seed, "rmsnorm", add)
+        rows[name] = (err, ADD_NORM_TOL, t)
+    err, t = rope_qk_write_case(Z, 55)
+    rows["decode_glue_rope_qk_write_zamba2"] = (err, ROPE_TOL, t)
+    return rows
+
+
+def kernel_row(entry, runs, kernels):
+    """The result row of one KERNELS entry: its kernel-phase numbers and
+    its launches in each main path's run."""
+    name, counter, source, replaces, path = entry
+    launches = runs[path]["launches"]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches[counter], launches_path=path,
+        # the decode calls among them, on the tier's GEMV
+        **({"gemv_launches": launches[counter + "_gemv"]}
+           if counter in ("w8a16", "w4a16", "w8a8") else {}),
+        # mamba2_decode's second kernel, launched once with each first
+        **({"gate_norm_launches": launches["mamba2_gate_norm"]}
+           if counter == "mamba2_scan_step" else {}),
+        launches_by_path={label: run["launches"][counter]
+                          for label, run in runs.items()},
+        **kernels[name])
 
 
 def _operands(counter: str) -> str:
@@ -3024,6 +3193,56 @@ def recurrent_phase(cfg, n_epochs: int = 2):
                 memory_peak_bytes=peak)
 
 
+def zamba2_instruct_phase(cfg, n_epochs: int = 2):
+    """zamba2-7b-instruct (the published block: 81 Mamba2 layers of two
+    groups, two shared blocks at 13 sites over concat(x, embedding)) at
+    full width and depth, last of the served models (B = 8, s' = 512,
+    n_max = 128, bf16, random weights from a seed, W8A16 dequantized at
+    load).  ``generate == generate_reference`` at W8A16 on the first
+    ``generate`` after its capture; ``dftsp`` epochs at W8A16 counted on
+    their own (the launches its KERNELS rows report): ``mamba2_decode``'s
+    two kernels, ``add_norm``, ``rope_qk_write`` and the device loop
+    launch, no K1-K7 counter moves; one decode step's kernel calls (each
+    Mamba2 layer's two, each site's rope and write), its eager and device
+    ms; the device memory peak."""
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
+    engine = _family_engine(cfg, "")
+    check(engine.decode_tier(8) == "none" and not engine.paged_capable,
+          f"{cfg.arch_id}: expected no attention-kernel tier and no paged "
+          f"path")
+    own = ("mamba2_scan_step", "mamba2_gate_norm", "add_norm",
+           "rope_qk_write")
+    others = tuple(c for c in ops.launch_counts()
+                   if c not in own + ("decode_loop",))
+    n0 = len(engine.captures)
+    (_, check_ms) = _timed(lambda: _check_generate(engine, prompts, caps, 8))
+    check(len(engine.captures) == n0 + 1,
+          f"{cfg.arch_id}: the checked generate was not the first after a "
+          f"capture")
+    label = "zamba2i_dftsp_w8a16"
+    runs = {label: epoch_path(engine, label, "W8A16", "dftsp",
+                              ("decode_loop",) + own, others, 10.0,
+                              n_epochs)}
+    timing = decode_step_timing(engine, prompts, 8, "W8A16")
+    calls = timing["kernel_calls_per_step"]
+    L, n_sites = cfg.n_layers, len(cfg.hybrid.sites)
+    check(calls.get("mamba2_scan_step") == calls.get("mamba2_gate_norm") == L
+          and calls.get("rope_qk_write") == n_sites
+          and calls.get("add_norm", 0) > L and set(calls) <= set(own),
+          f"{cfg.arch_id}: a decode step launched {calls}, expected "
+          f"mamba2_decode {L} times, rope_qk_write {n_sites}, add_norm and "
+          f"nothing else")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"slice: {cfg.arch_id}: generate == generate_reference at W8A16 "
+        f"({check_ms:.0f} ms); a step's kernel calls {calls}; device "
+        f"memory peak {peak / 2**30:.2f} GiB")
+    return dict(runs=runs, timings={"W8A16": timing},
+                first_generate_check_ms=check_ms, captures=engine.captures,
+                memory_peak_bytes=peak)
+
+
 def kept_tables(engine):
     """The dequantized embedding tables the engine keeps, in bytes per
     precision and counted once per storage: W8A16 and W8A8 quantize the
@@ -3672,6 +3891,13 @@ def main() -> int:
                   f"unexpected {arch} config {c}")
             fam[arch] = phase(c)
             _free()                        # each engine goes before the next
+        cz = get_arch("zamba2-7b-instruct")
+        check(cz.n_layers == 81 and cz.d_model == 3584 and cz.d_head == 224
+              and cz.ssm.n_groups == 2 and len(cz.hybrid.sites) == 13
+              and cz.vocab == 32000 and cz.dtype == "bfloat16",
+              f"unexpected zamba2-7b-instruct config {cz}")
+        fam["zamba2-7b-instruct"] = zamba2_instruct_phase(cz)
+        _free()
     # training needs autograd: outside no_grad
     train_small = train_small_phase()
     cfg_olmo = get_arch("olmo-1b")
@@ -3719,18 +3945,7 @@ def main() -> int:
     runs = {**sl["runs"], **sl7["runs"]}
     for f in fam.values():
         runs.update(f["runs"])
-    rows = []
-    for name, counter, source, replaces, path in KERNELS:
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=runs[path]["launches"][counter],
-            launches_path=path,
-            # the decode calls among them, on the tier's GEMV
-            **({"gemv_launches": runs[path]["launches"][counter + "_gemv"]}
-               if counter in ("w8a16", "w4a16", "w8a8") else {}),
-            launches_by_path={label: run["launches"][counter]
-                              for label, run in runs.items()},
-            **kernels[name]))
+    rows = [kernel_row(entry, runs, kernels) for entry in KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

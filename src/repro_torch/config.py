@@ -36,6 +36,9 @@ class SSMConfig:
     expand: int = 2            # d_inner = expand * d_model
     chunk: int = 128           # chunk length for the chunked SSD scan
     conv_width: int = 4        # depthwise conv width in Mamba blocks
+    n_groups: int = 1          # B/C groups (Mamba2's ngroups): heads
+                               # [g H/G, (g+1) H/G) read group g
+    conv_bias: bool = False    # the depthwise conv adds a bias
 
 
 @dataclass(frozen=True)
@@ -48,10 +51,26 @@ class XLSTMConfig:
 
 @dataclass(frozen=True)
 class HybridConfig:
-    """Zamba2-style hybrid: Mamba2 backbone + periodically applied shared
-    attention block (one set of attention weights reused at several depths)."""
+    """Zamba2-style hybrid: Mamba2 backbone + shared attention blocks (one
+    weight set reused at several depths).
+
+    The defaults are the JAX package's simplification: one block with its
+    own residuals applied after every ``attn_every`` Mamba2 layers.  A
+    non-empty ``sites`` is the published Zamba2 layout: site i runs block
+    ``i % HYBRID_BLOCKS`` on RMSNorm(concat(x, embedding)) with no
+    residual inside it, its logits scaled by (d_head / 2)^-1/2, adds the
+    site's own LoRA adapter of rank ``adapter_rank`` to its MLP's gate/up
+    projection and maps its output through the site's own D -> D linear;
+    the result is added to the input of Mamba2 layer ``sites[i]`` (before
+    that layer's norm), not to the residual stream."""
     attn_every: int = 6        # apply the shared attention block every k layers
     shared_attn: bool = True   # single shared weight set (Zamba2)
+    sites: Tuple[int, ...] = ()  # Mamba2 layers whose input takes a site
+    adapter_rank: int = 128    # the per-site LoRA's rank (published layout)
+
+
+# the published layout's shared weight sets, used in turn (ABAB)
+HYBRID_BLOCKS = 2
 
 
 @dataclass(frozen=True)
@@ -78,7 +97,7 @@ class ModelConfig:
     vocab: int
     d_head: int = 0             # 0 => d_model // n_heads
     norm: str = "rmsnorm"       # rmsnorm | layernorm | nonparam_ln
-    act: str = "silu"           # silu (swiglu) | gelu | relu
+    act: str = "silu"           # silu (swiglu) | gelu | relu | geglu (erf)
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     sliding_window: int = 0     # 0 => full attention
@@ -142,7 +161,7 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
         return dm * (nh * dh) + 2 * dm * (nkv * dh) + (nh * dh) * dm
 
     def ffn_params(d_ff: int) -> int:
-        if cfg.act == "silu":      # gated: w1, w3 up + w2 down
+        if cfg.act in ("silu", "geglu"):   # gated: w1, w3 up + w2 down
             return 3 * dm * d_ff
         return 2 * dm * d_ff
 
@@ -162,7 +181,20 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
         per_mamba = (dm * (2 * d_inner + 2 * cfg.ssm.d_state + nheads)
                      + d_inner * dm + cfg.ssm.conv_width * (d_inner + 2 * cfg.ssm.d_state)
                      + 2 * nheads)
-        if cfg.family == "hybrid" and cfg.hybrid is not None:
+        if cfg.family == "hybrid" and cfg.hybrid is not None \
+                and cfg.hybrid.sites:
+            hy, d_in = cfg.hybrid, hybrid_attn_width(cfg)
+            G = cfg.ssm.n_groups
+            # the groups' B/C, the conv bias, dt_bias, the gate and pre norms
+            per_mamba += (2 * (G - 1) * cfg.ssm.d_state * (dm + cfg.ssm.conv_width)
+                          + (d_inner + 2 * G * cfg.ssm.d_state) * cfg.ssm.conv_bias
+                          + nheads + d_inner + dm)
+            block = (d_in * 3 * nh * dh + nh * dh * dm + ffn_params(cfg.d_ff)
+                     + d_in + dm)                # q, k, v, o, MLP, 2 norms
+            site = hy.adapter_rank * (dm + 2 * cfg.d_ff) + dm * dm
+            body = (cfg.n_layers * per_mamba + HYBRID_BLOCKS * block
+                    + len(hy.sites) * site + dm)  # + the final norm
+        elif cfg.family == "hybrid" and cfg.hybrid is not None:
             n_attn_sites = cfg.n_layers // cfg.hybrid.attn_every
             attn_sets = 1 if cfg.hybrid.shared_attn else n_attn_sites
             body = cfg.n_layers * per_mamba + attn_sets * (attn_params() + ffn_params(cfg.d_ff))
@@ -182,6 +214,13 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
                     + cfg.n_layers * (per_layer + dec_cross))
     embed = V * dm * (1 if cfg.tie_embeddings else 2)
     return body + embed
+
+
+def hybrid_attn_width(cfg: ModelConfig) -> int:
+    """The shared block's attention input width: 2 d_model over the
+    published layout's concatenated embedding, else d_model."""
+    return cfg.d_model * (2 if cfg.hybrid is not None
+                          and cfg.hybrid.sites else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +328,12 @@ _ARCHS = ("bloom-3b", "bloom-7b1", "opt-13b", "olmo-1b",
           "deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
           "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b",
           "xlstm-1.3b", "zamba2-7b", "whisper-tiny")
-_CONFIG_MODULES = [a.replace("-", "_").replace(".", "_") for a in _ARCHS]
+# configs of the port alone, not of the JAX package: the published
+# Zamba2-7B-Instruct block (the JAX package carries its simplification,
+# zamba2-7b)
+_PORT_ARCHS = ("zamba2-7b-instruct",)
+_CONFIG_MODULES = [a.replace("-", "_").replace(".", "_")
+                   for a in _ARCHS + _PORT_ARCHS]
 # the ten architectures the dry run covers (the JAX package's assigned set)
 _ASSIGNED_ARCHS = (
     "xlstm-1.3b", "mistral-large-123b", "internvl2-26b", "olmo-1b",

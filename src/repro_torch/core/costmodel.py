@@ -15,7 +15,10 @@ generalizes to GQA / MoE / SSM / hybrid / enc-dec (DESIGN.md §4):
   * SSM/xLSTM: O(1)-in-context state instead of KV cache; decode FLOPs have
     no (s' + n/2) attention-read term => latency constraint becomes linear;
   * SWA: attention reads min(context, window); KV cache capped at window;
-  * enc-dec: prefill includes the encoder pass; cross-attn KV is static.
+  * enc-dec: prefill includes the encoder pass; cross-attn KV is static;
+  * hybrid with a site list (published Zamba2): KV at each of the sites,
+    each site's attention over the 2 d_model concatenation, its adapter
+    and its linear; the Mamba2 projections at n_groups B/C groups.
 
 All byte quantities are *pre-quantization* (2-byte params), matching the
 paper; quantization enters via alpha/beta in problem.py.
@@ -25,7 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, hybrid_attn_width
 
 PARAM_BYTES = 2.0
 
@@ -52,7 +55,7 @@ class CostModel:
             return 0.0
         if c.family == "hybrid":
             # only the shared-attn sites cache KV
-            n_sites = c.n_layers // c.hybrid.attn_every
+            n_sites = self._n_sites()
             return 2 * PARAM_BYTES * n_sites * c.n_kv_heads * c.d_head
         return 2 * PARAM_BYTES * c.n_layers * c.n_kv_heads * c.d_head
 
@@ -99,16 +102,29 @@ class CostModel:
         c = self.cfg
         if c.family == "ssm":
             return 0.0
-        n_mats = 3 if c.act == "silu" else 2
+        n_mats = 3 if c.act in ("silu", "geglu") else 2
         per = n_mats * 2 * c.d_model * c.d_ff
         if c.is_moe:
             return c.moe.top_k * per + 2 * c.d_model * c.moe.n_experts
         return per
 
+    def _n_sites(self) -> int:
+        """The hybrid's shared-block sites."""
+        hy = self.cfg.hybrid
+        return len(hy.sites) or self.cfg.n_layers // hy.attn_every
+
+    def _site_extra_flops_per_token(self) -> float:
+        """A published Zamba2 site's adapter (D -> r -> 2 d_ff) and linear
+        (D -> D), one token."""
+        c, hy = self.cfg, self.cfg.hybrid
+        return (2 * hy.adapter_rank * (c.d_model + 2 * c.d_ff)
+                + 2 * c.d_model * c.d_model)
+
     def _qkvo_flops_per_token(self) -> float:
         c = self.cfg
-        q = 2 * c.d_model * c.n_heads * c.d_head
-        kv = 2 * 2 * c.d_model * c.n_kv_heads * c.d_head
+        d_in = hybrid_attn_width(c)   # d_model but over a concatenation
+        q = 2 * d_in * c.n_heads * c.d_head
+        kv = 2 * 2 * d_in * c.n_kv_heads * c.d_head
         o = 2 * c.n_heads * c.d_head * c.d_model
         return q + kv + o
 
@@ -128,7 +144,8 @@ class CostModel:
             return proj + cell
         d_inner = c.ssm.expand * c.d_model
         H = d_inner // c.ssm.head_dim
-        proj = 2 * (c.d_model * (2 * d_inner + 2 * c.ssm.d_state + H)
+        GN = c.ssm.n_groups * c.ssm.d_state
+        proj = 2 * (c.d_model * (2 * d_inner + 2 * GN + H)
                     + d_inner * c.d_model)
         cell = 2 * H * c.ssm.head_dim * c.ssm.d_state * 2
         return proj + cell
@@ -140,10 +157,12 @@ class CostModel:
             return self._ssm_flops_per_token()
         if c.family == "hybrid":
             # per *average* layer: mamba every layer + shared attn at sites
-            site_frac = (c.n_layers // c.hybrid.attn_every) / c.n_layers
+            site_frac = self._n_sites() / c.n_layers
             attn = (self._qkvo_flops_per_token()
                     + self._attn_read_flops(min(ctx, 4096))
                     + self._ffn_flops_per_token())
+            if c.hybrid.sites:
+                attn += self._site_extra_flops_per_token()
             return self._ssm_flops_per_token() + site_frac * attn
         return (self._qkvo_flops_per_token() + self._attn_read_flops(ctx)
                 + self._ffn_flops_per_token())

@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("quant_matmul", "flash_decode", "flash_decode_fused",
-           "decode_loop", "decode_glue")
+           "decode_loop", "decode_glue", "mamba2_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -102,6 +102,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "add_norm": (P, P, P, P, P, I, I, I, I, F, I, P),
         "rope_qk_write": (P,) * 5 + (I,) + (P,) * 4 + (I,) * 8
         + (L, L, L, I, P),
+        "mamba2_decode": (P,) * 11 + (I,) * 6 + (F, I, P),
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_glue as _dg
 from repro_torch.kernels import decode_loop as _dl
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import mamba2_decode as _md
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.quant.ptq import QTensor, quantize_rowwise
 
@@ -26,7 +27,8 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-_COUNTERS = (_qm.LAUNCHES, _fd.LAUNCHES, _dg.LAUNCHES, _dl.LAUNCHES)
+_COUNTERS = (_qm.LAUNCHES, _fd.LAUNCHES, _dg.LAUNCHES, _dl.LAUNCHES,
+             _md.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -143,6 +145,22 @@ def add_norm(x: torch.Tensor, y, w, kind: str, eps: float = 1e-5):
     if _on_cuda(x):
         return _dg.add_norm_cuda(x, y, w, kind, eps)
     return _dg.add_norm_plain(x, y, w, kind, eps)
+
+
+def mamba2_decode(proj: torch.Tensor, conv_state: torch.Tensor,
+                  ssm: torch.Tensor, p: dict, n_groups: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """One Mamba2 layer's decode step after its input projection ``proj``
+    (B, d_proj), with the layer's params ``p``: the conv and SSM states
+    updated in place, the gated, group-normalized y (B, d_inner)
+    returned.  CUDA tensors only (two launches); the CPU takes its plain
+    version, ``models.mamba2.decode_between``."""
+    if not _on_cuda(proj):
+        raise ValueError("mamba2_decode: CUDA tensors only; on the CPU "
+                         "models.mamba2.decode_between runs its op chain")
+    return _md.mamba2_decode_cuda(proj, conv_state, ssm, p["conv_w"],
+                                  p.get("conv_b"), p["dt_bias"], p["A_log"],
+                                  p["D"], p["gate_norm"], n_groups, eps)
 
 
 def rope_qk_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,

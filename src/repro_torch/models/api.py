@@ -9,7 +9,8 @@ functions over a params dict, as in the JAX package.  Every family's cache
 is a list of per-layer dicts whose leaves hold the batch on axis 0, so the
 serving engine splices refilled rows the same way for all of them.  Only
 the transformer family has a paged decode step and takes ``use_kernel``;
-the others decode with no kernel, as in the JAX package.
+the others decode with no attention kernel, as in the JAX package (the
+published Zamba2 layout's step runs the Mamba2 and decode-glue kernels).
 """
 from __future__ import annotations
 

@@ -105,7 +105,7 @@ def make_attn_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
 def make_ffn_params(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     dm, df = cfg.d_model, cfg.d_ff
     p = {"w1": dense_init(gen, (dm, df), 0, dtype)}
-    if cfg.act == "silu":   # gated (SwiGLU)
+    if cfg.act in ("silu", "geglu"):   # gated (SwiGLU, GeGLU)
         p["w3"] = dense_init(gen, (dm, df), 0, dtype)
     p["w2"] = dense_init(gen, (df, dm), 0, dtype)
     return p
@@ -250,11 +250,13 @@ def qkv_proj(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+                  mask: Optional[torch.Tensor],
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Grouped-query attention.
 
     q: (B, Sq, nh, dh); k, v: (B, Sk, nkv, dh); mask broadcastable to
-    (B, nkv, G, Sq, Sk) with True = attend.  Returns (B, Sq, nh, dh).
+    (B, nkv, G, Sq, Sk) with True = attend; ``scale`` the logits' factor
+    (None: 1/sqrt(dh)).  Returns (B, Sq, nh, dh).
     Under a mesh it runs on each device's batch and head shard
     (``head_local``; heads sharded when the KV heads divide the model
     axis), or, over a slot-sharded decode cache, on the sharded slots with
@@ -262,13 +264,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = axis_divisor("model")
     if d > 1 and sharded_dim(k, "model") == 1:
         return _gqa_attention(constrain(q, "batch", None, None, None), k, v,
-                              mask)
-    return head_local(_gqa_attention, (q, k, v, mask), (2, 2, 2, None),
-                      k.shape[2] % d == 0)
+                              mask, scale)
+    return head_local(functools.partial(_gqa_attention, scale=scale),
+                      (q, k, v, mask), (2, 2, 2, None), k.shape[2] % d == 0)
 
 
 def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+                   mask: Optional[torch.Tensor],
+                   scale: Optional[float] = None) -> torch.Tensor:
     """``gqa_attention``'s math.  Logits and the weighted sum accumulate in
     float32; the probabilities are rounded to v's type first, as in the
     JAX package."""
@@ -277,7 +280,7 @@ def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = nh // nkv
     qg = q.reshape(B, Sq, nkv, G, dh).to(torch.float32)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32)) \
-        * (1.0 / math.sqrt(dh))
+        * (1.0 / math.sqrt(dh) if scale is None else scale)
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
@@ -324,27 +327,31 @@ def _attn_logits_shard(logits: torch.Tensor) -> torch.Tensor:
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, window: int = 0,
                              chunk: int = 512,
-                             q_offset: int = 0) -> torch.Tensor:
+                             q_offset: int = 0,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """Blocked causal attention: a loop over query chunks, so the S x S
     score matrix never materializes; the direct masked form for short
-    sequences.  q: (B,S,nh,dh), k/v: (B,Sk,nkv,dh)."""
+    sequences.  q: (B,S,nh,dh), k/v: (B,Sk,nkv,dh); ``scale`` the logits'
+    factor (None: 1/sqrt(dh))."""
     B, S, nh, dh = q.shape
     Sk, nkv = k.shape[1], k.shape[2]
     G = nh // nkv
     if S <= chunk or S % chunk:
         return gqa_attention(q, k, v, causal_mask(S, Sk, window, q_offset,
-                                                  q.device))
+                                                  q.device), scale)
     k_r = (k.repeat_interleave(G, dim=2) if G > 1 else k).to(torch.float32)
     v_r = (v.repeat_interleave(G, dim=2) if G > 1 else v).to(torch.float32)
     k_r = constrain(k_r, "batch", None, "model", None)
     v_r = constrain(v_r, "batch", None, "model", None)
     return head_local(functools.partial(_chunked_attention, window=window,
-                                        chunk=chunk, q_offset=q_offset),
+                                        chunk=chunk, q_offset=q_offset,
+                                        scale=scale),
                       (q, k_r, v_r), (2, 2, 2), nh % axis_divisor("model") == 0)
 
 
 def _chunked_attention(q: torch.Tensor, k_r: torch.Tensor, v_r: torch.Tensor,
-                       window: int, chunk: int, q_offset: int) -> torch.Tensor:
+                       window: int, chunk: int, q_offset: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """``chunked_causal_attention``'s loop over query chunks; k_r, v_r
     (B, Sk, nh, dh) float32, repeated to q's heads."""
     B, S, nh, dh = q.shape
@@ -354,7 +361,8 @@ def _chunked_attention(q: torch.Tensor, k_r: torch.Tensor, v_r: torch.Tensor,
     for i in range(S // chunk):
         qb = q[:, i * chunk:(i + 1) * chunk].to(torch.float32)
         logits = _attn_logits_shard(
-            torch.einsum("bqhd,bshd->bhqs", qb, k_r) * (1.0 / math.sqrt(dh)))
+            torch.einsum("bqhd,bshd->bhqs", qb, k_r)
+            * (1.0 / math.sqrt(dh) if scale is None else scale))
         qpos = (i * chunk + q_offset) + torch.arange(chunk, device=q.device)[:, None]
         m = kpos <= qpos
         if window > 0:
@@ -523,22 +531,31 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           pos, use_rope: bool = True) -> torch.Tensor:
-    """One-token decode attention with no kernel, on every device: the
-    projections, rope, the write at slot pos % W and the masked softmax
-    over the slots below min(pos + 1, W).  It is the path the JAX package
+                           pos, use_rope: bool = True,
+                           scale: Optional[float] = None,
+                           glue: bool = False) -> torch.Tensor:
+    """One-token decode attention with no attention kernel, on every
+    device: the projections, rope, the write at slot pos % W and the
+    masked softmax over the slots below min(pos + 1, W), its logits scaled
+    by ``scale`` (None: 1/sqrt(d_head)).  ``glue``: rope and the write
+    through ``_decode_qkv_write`` (the decode-glue kernel off a mesh; the
+    same values on the CPU).  It is the path the JAX package
     serves the recurrent, hybrid and audio families on (Zamba2's shared
     attention, Whisper's self-attention: its engine refuses ``use_kernel``
     for them); the transformer family reaches it only on CPU tensors,
     through ``decode_attention(use_kernel=False)``."""
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
-    q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
-    cache_write(((cache_k, k1), (cache_v, v1)), dp)
+    if glue:
+        q = _decode_qkv_write(p, cfg, x, dp, cache_k, cache_v,
+                              use_rope=use_rope)
+    else:
+        q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
+        cache_write(((cache_k, k1), (cache_v, v1)), dp)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
-    out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W))
+    out = gqa_attention(q, cache_k, cache_v, _valid_mask(n_valid, W), scale)
     out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
     return constrain(out, "batch", None, None)
 
@@ -693,9 +710,20 @@ def prefill_slots(x: torch.Tensor, W: int,
 # ---------------------------------------------------------------------------
 
 
-def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              gate_up_delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FFN: SwiGLU (``silu``), GeGLU with the exact (erf) GELU
+    (``geglu``), or an ungated GELU (tanh) / ReLU.  ``gate_up_delta``
+    (geglu only): a (..., 2 d_ff) term added to the gate | up
+    pre-activations (Zamba2's per-site adapter)."""
     if cfg.act == "silu":
         h = F.silu(mm(x, p["w1"])) * mm(x, p["w3"])
+    elif cfg.act == "geglu":
+        gate, up = mm(x, p["w1"]), mm(x, p["w3"])
+        if gate_up_delta is not None:
+            dg, du = torch.chunk(gate_up_delta, 2, dim=-1)
+            gate, up = gate + dg, up + du
+        h = F.gelu(gate) * up
     elif cfg.act == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(mm(x, p["w1"]), approximate="tanh")

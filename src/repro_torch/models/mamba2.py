@@ -8,6 +8,12 @@ step-by-step oracle.  Products run in float32 as in the JAX package; the
 causal conv is its explicit sum of shifted products (not ``F.conv1d``),
 so that no other summation order and no TF32 enter it.
 
+With ``n_groups`` G > 1 (Mamba2's ngroups; Zamba2-7B-Instruct has 2), B
+and C come in G groups of N and heads [g H/G, (g+1) H/G) read group g;
+the chunked scan runs once per group, and the gated RMSNorm normalizes
+each of G groups of d_inner / G channels apart.  ``conv_bias`` adds a
+bias to the causal conv before its SiLU.
+
 A block's decode state is {"ssm": (B, H, P, N) float32, "conv": (B, K-1,
 C) model dtype}, batch on axis 0.  ``block_decode`` writes the new state
 into those tensors in place (``copy_``), so a captured step keeps its
@@ -22,8 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common
-from repro_torch.utils.sharding import axis_divisor, constrain, head_local
+from repro_torch.utils.sharding import (axis_divisor, constrain, head_local,
+                                        on_mesh)
 
 Params = Dict[str, Any]
 
@@ -37,7 +45,7 @@ def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 
 def conv_channels(cfg: ModelConfig) -> int:
     d_inner, _, _, N = dims(cfg)
-    return d_inner + 2 * N          # x, B, C share the causal conv
+    return d_inner + 2 * cfg.ssm.n_groups * N   # x, B, C share the conv
 
 
 def init_block(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
@@ -45,11 +53,15 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     dm = cfg.d_model
     d_inner, H, P, N = dims(cfg)
     dev = gen.device
-    d_proj = 2 * d_inner + 2 * N + H          # z, x, B, C, dt
-    return {
+    C = conv_channels(cfg)
+    d_proj = d_inner + C + H                  # z, x, B, C, dt
+    p = {
         "in_proj": common.dense_init(gen, (dm, d_proj), 0, dtype),
-        "conv_w": common.dense_init(gen, (cfg.ssm.conv_width,
-                                          conv_channels(cfg)), 0, dtype),
+        "conv_w": common.dense_init(gen, (cfg.ssm.conv_width, C), 0, dtype),
+    }
+    if cfg.ssm.conv_bias:
+        p["conv_b"] = torch.zeros((C,), dtype=dtype, device=dev)
+    return p | {
         "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
         "D": torch.ones((H,), dtype=torch.float32, device=dev),
         "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
@@ -61,15 +73,16 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
 
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     d_inner, H, P, N = dims(cfg)
-    return torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
+    return torch.split(proj, [d_inner, conv_channels(cfg), H], dim=-1)
 
 
 def _conv_sum(w: torch.Tensor, x: torch.Tensor,
-              state: Optional[torch.Tensor] = None):
+              state: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None):
     """Depthwise causal conv of width K before its activation: x (B, T,
     C), state (B, K-1, C) the last K-1 inputs (zeros when None).  Returns
-    (sum_i xpad[:, i:i+T] * w[i], the new state), the sum taken in the JAX
-    package's order."""
+    (sum_i xpad[:, i:i+T] * w[i] (+ bias), the new state), the sum taken
+    in the JAX package's order."""
     K = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], K - 1, x.shape[-1]), dtype=x.dtype,
@@ -77,14 +90,17 @@ def _conv_sum(w: torch.Tensor, x: torch.Tensor,
     xpad = torch.cat([state.to(x.dtype), x], dim=1)
     T = x.shape[1]
     out = sum(xpad[:, i:i + T] * w[i][None, None] for i in range(K))
+    if bias is not None:
+        out = out + bias
     new_state = xpad[:, -(K - 1):] if K > 1 else state
     return out, new_state
 
 
 def _causal_conv(w: torch.Tensor, x: torch.Tensor,
-                 state: Optional[torch.Tensor] = None):
+                 state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
     """SiLU of the causal conv; returns (out, new_state)."""
-    out, new_state = _conv_sum(w, x, state)
+    out, new_state = _conv_sum(w, x, state, bias)
     return F.silu(out), new_state
 
 
@@ -157,6 +173,23 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+    """``ssd_chunked`` with B, C in groups: Bm, Cm (B, T, G, N), heads [g
+    H/G, (g+1) H/G) reading group g.  One chunked scan per group; returns
+    (y (B, T, H, P), final state (B, H, P, N) float32)."""
+    G = Bm.shape[2]
+    hg = x.shape[2] // G
+    ys, states = [], []
+    for g in range(G):
+        h = slice(g * hg, (g + 1) * hg)
+        y, st = ssd_chunked(x[:, :, h], dt[:, :, h], A[h], Bm[:, :, g],
+                            Cm[:, :, g], chunk)
+        ys.append(y)
+        states.append(st)
+    return torch.cat(ys, dim=2), torch.cat(states, dim=1)
+
+
 def ssd_reference(x, dt, A, Bm, Cm, init_state=None):
     """Step-by-step recurrence oracle (float32)."""
     Bb, T, H, P = x.shape
@@ -177,8 +210,29 @@ def ssd_reference(x, dt, A, Bm, Cm, init_state=None):
 def _gate(cfg: ModelConfig, p: Params, y: torch.Tensor,
           z: torch.Tensor) -> torch.Tensor:
     """rmsnorm(y * silu(z)) through the output projection."""
+    return _gate_norm(cfg, p, y, z) @ p["out_proj"]
+
+
+def _gate_norm(cfg: ModelConfig, p: Params, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) with its weight; with G groups the norm runs
+    over each group of d_inner / G channels apart."""
     g = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    return common.apply_norm("rmsnorm", p["gate_norm"], g) @ p["out_proj"]
+    G = cfg.ssm.n_groups
+    if G == 1:
+        return common.apply_norm("rmsnorm", p["gate_norm"], g)
+    gf = g.to(torch.float32).unflatten(-1, (G, -1))
+    gf = gf * torch.rsqrt(torch.mean(gf * gf, dim=-1, keepdim=True) + 1e-5)
+    gf = gf.flatten(-2) * p["gate_norm"].to(torch.float32)
+    return gf.to(g.dtype)
+
+
+def _groups(cfg: ModelConfig, Bm: torch.Tensor, Cm: torch.Tensor):
+    """B, C (..., G N) as (..., G, N) where G > 1; as they are else."""
+    G, N = cfg.ssm.n_groups, cfg.ssm.d_state
+    if G == 1:
+        return Bm, Cm
+    return Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
 
 
 def block_forward(cfg: ModelConfig, p: Params, u: torch.Tensor,
@@ -190,16 +244,21 @@ def block_forward(cfg: ModelConfig, p: Params, u: torch.Tensor,
     sequence."""
     d_inner, H, P, N = dims(cfg)
     B, T, _ = u.shape
+    GN = cfg.ssm.n_groups * N
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
-    xBC, conv_state = _causal_conv(p["conv_w"], xBC)
-    x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
+    xBC, conv_state = _causal_conv(p["conv_w"], xBC, bias=p.get("conv_b"))
+    x, Bm, Cm = torch.split(xBC, [d_inner, GN, GN], dim=-1)
+    Bm, Cm = _groups(cfg, Bm, Cm)
     x = constrain(common.split_heads(x, H, P), "batch", None, "model", None)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
-    # under a mesh the scan runs on each device's batch and head shard
-    y, final = head_local(functools.partial(ssd_chunked, chunk=cfg.ssm.chunk),
+    # under a mesh the scan runs on each device's batch and head shard (a
+    # grouped scan keeps its heads whole: a shard would split the groups)
+    scan = ssd_chunked if cfg.ssm.n_groups == 1 else ssd_grouped
+    y, final = head_local(functools.partial(scan, chunk=cfg.ssm.chunk),
                           (x, dt, A, Bm, Cm), (2, 2, 0, None, None),
-                          H % axis_divisor("model") == 0,
+                          H % axis_divisor("model") == 0
+                          and cfg.ssm.n_groups == 1,
                           batched=(True, True, False, True, True),
                           out_head_dims=(2, 1))
     y = y + x * p["D"][None, None, :, None].to(x.dtype)
@@ -210,27 +269,60 @@ def block_forward(cfg: ModelConfig, p: Params, u: torch.Tensor,
 
 
 def block_decode(cfg: ModelConfig, p: Params, u: torch.Tensor,
-                 state: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 state: Dict[str, torch.Tensor],
+                 use_kernel: bool = False) -> torch.Tensor:
     """Single-token step.  u: (B, 1, D); ``state`` per ``block_forward``,
-    updated in place.  Returns the block's output (B, 1, D)."""
+    updated in place.  Returns the block's output (B, 1, D).  With
+    ``use_kernel``, on CUDA tensors everything between the two
+    projections is ``kops.mamba2_decode`` (two kernels), which takes
+    whole tensors on one card: under a mesh it raises.  On CPU tensors,
+    or without ``use_kernel``, ``decode_between`` (its plain version)."""
+    if use_kernel and u.is_cuda and on_mesh(u):
+        raise NotImplementedError("mamba2 block_decode: the decode kernel "
+                                  "takes whole tensors on one card, not "
+                                  "a mesh's shards")
+    proj = u @ p["in_proj"]
+    if use_kernel and u.is_cuda:
+        g = kops.mamba2_decode(proj[:, 0], state["conv"], state["ssm"], p,
+                               cfg.ssm.n_groups)[:, None]
+    else:
+        g = decode_between(cfg, p, proj, state)
+    return constrain(g @ p["out_proj"], "batch", None, None)
+
+
+def decode_between(cfg: ModelConfig, p: Params, proj: torch.Tensor,
+                   state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A decode step between the projections, as an op chain: the conv
+    and SSM states updated in place from one token's ``proj`` (B, 1,
+    d_proj), the gated, group-normalized y (B, 1, d_inner) returned
+    (``kops.mamba2_decode``'s plain version)."""
     d_inner, H, P, N = dims(cfg)
-    B = u.shape[0]
-    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
-    xBC, conv_state = _causal_conv(p["conv_w"], xBC, state["conv"])
-    x, Bm, Cm = torch.split(xBC[:, 0], [d_inner, N, N], dim=-1)
+    B = proj.shape[0]
+    G = cfg.ssm.n_groups
+    z, xBC, dt = _split_proj(cfg, proj)
+    xBC, conv_state = _causal_conv(p["conv_w"], xBC, state["conv"],
+                                   p.get("conv_b"))
+    x, Bm, Cm = torch.split(xBC[:, 0], [d_inner, G * N, G * N], dim=-1)
     x = x.reshape(B, H, P).to(torch.float32)
     dt1 = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"][None])
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt1 * A[None])                          # (B,H)
-    ssm = state["ssm"] * decay[..., None, None] + torch.einsum(
-        "bhp,bn->bhpn", x * dt1[..., None], Bm.to(torch.float32))
-    y = torch.einsum("bhpn,bn->bhp", ssm, Cm.to(torch.float32))
+    if G == 1:
+        ssm = state["ssm"] * decay[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", x * dt1[..., None], Bm.to(torch.float32))
+        y = torch.einsum("bhpn,bn->bhp", ssm, Cm.to(torch.float32))
+    else:
+        # each head's group of B, C: (B, G, N) -> (B, H, N)
+        Bh, Ch = (t.to(torch.float32).reshape(B, G, N)
+                  .repeat_interleave(H // G, dim=1) for t in (Bm, Cm))
+        ssm = state["ssm"] * decay[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", x * dt1[..., None], Bh)
+        y = torch.einsum("bhpn,bhn->bhp", ssm, Ch)
     y = y + x * p["D"][None, :, None]
-    y = y.reshape(B, 1, d_inner).to(u.dtype)
-    out = constrain(_gate(cfg, p, y, z), "batch", None, None)
+    y = y.reshape(B, 1, d_inner).to(proj.dtype)
     state["ssm"].copy_(ssm)
     state["conv"].copy_(conv_state)
-    return out
+    return _gate_norm(cfg, p, y, z)
 
 
 def state_specs(cfg: ModelConfig, batch: int,

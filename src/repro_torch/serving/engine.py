@@ -54,8 +54,11 @@ kernels, on the CPU through the kernels' plain versions.  The recurrent,
 hybrid and audio families (xLSTM, Zamba2, Whisper) serve their quantized
 trees dequantized at load, on every device, as the JAX package does (their
 matmuls do not route through ``common.mm``'s kernels there either), and
-decode with no kernel: ``use_kernel`` does not apply to them (the JAX
-package's engine refuses it for them).
+decode with no attention kernel: ``use_kernel`` does not apply to them
+(the JAX package's engine refuses it for them).  Of them only the
+published Zamba2 layout (``zamba2-7b-instruct``) launches kernels of the
+port in its decode step: ``mamba2_decode``, ``add_norm`` and
+``rope_qk_write``.
 
 Every data-plane entry (``generate``, ``start_chunked``,
 ``refill_chunked``, ``generate_chunked``, ``poll_chunked``) is a root span
@@ -535,7 +538,10 @@ class ServingEngine:
         are all freed (every cohort drained) cannot take another capture.
         ``captures`` records the span's host ms, warm-up included, and the
         kernel nodes of the captured step (``kernel_nodes``, read after the
-        span; also a count ``nodes`` of the tracer)."""
+        span; also a count ``nodes`` of the tracer); on the hybrid family
+        also the bytes of SSM and conv state the step reads and writes
+        (``ssm_state_bytes``, twice the state leaves' bytes; also a count of
+        the tracer)."""
         with trace.span("engine.capture") as timing:
             step = self._model_step(state)
             with trace.span("engine.capture.warm_up"):
@@ -558,6 +564,12 @@ class ServingEngine:
         self.captures.append(dict(bits=state.bits, ms=timing.ms,
                                   paged=isinstance(state, PagedDecodeState),
                                   nodes=nodes))
+        if self.cfg.family == "hybrid":
+            n = 2 * sum(leaf.nbytes for layer in state.cache
+                        for name, leaf in layer.items()
+                        if name in ("ssm", "conv"))
+            trace.count("ssm_state_bytes", n)
+            self.captures[-1]["ssm_state_bytes"] = n
         return loop
 
     def _read_back(self, state, cols) -> np.ndarray:

@@ -26,7 +26,14 @@ ones it dropped (``dropped_since``).  Four kinds of record, all on the
   device's first anchor are not placed.
 - :class:`Count`, a number a call reports: ``iters``, the decode-loop
   iterations a read-back found; ``rows``, the rows a prefill admitted;
-  ``nodes``, the kernel nodes of a step the engine captured.
+  ``nodes``, the kernel nodes of a step the engine captured;
+  ``ssm_state_bytes``, on the hybrid family, the SSM and conv state bytes
+  that captured step reads and writes.
+
+The hybrid family's prefill in the published Zamba2 layout adds device
+intervals ``dev.prefill.mamba`` (each Mamba2 mixer) and
+``dev.prefill.shared`` (each shared-block site), nested in the engine's
+``dev.prefill``.
 - :class:`Gauge`: the card's SM clock (MHz), board power (W) and
   clock-event reason bitmask, read from NVML through ``ctypes`` at most
   once a second, after a read-back; none where NVML does not load.

@@ -123,3 +123,58 @@ def test_encdec_prefill_includes_encoder():
     cm = CostModel(c)
     dec_only = CostModel(c.scaled(encdec=None, family="dense"))
     assert cm.prefill_flops(64, 1) > dec_only.prefill_flops(64, 1)
+
+
+# -- the port's cost model of the published Zamba2 block -----------------------
+
+def _zamba2_published_hand():
+    """Zamba2-7B-Instruct counted by hand from its config.json: the 81
+    Mamba2 layers (in_proj to z | xBC | dt, the conv's taps and bias,
+    A_log, D, dt_bias, the gate norm, out_proj, the pre-norm), the two
+    shared blocks (q, k, v from the 7168-wide concatenation, o_proj, the
+    GeGLU's gate, up and down, two norms), the 13 sites' adapters and
+    linears, the tied embedding and the final norm."""
+    D, di, C, H, F = 3584, 7168, 7168 + 2 * 2 * 64, 112, 14336
+    mamba = D * (di + C + H) + 4 * C + C + 3 * H + di + di * D + D
+    block = 3 * 2 * D * 7168 + 7168 * D + 3 * D * F + 2 * D + D
+    site = 128 * (D + 2 * F) + D * D
+    return 81 * mamba + 2 * block + 13 * site + 32000 * D + D
+
+
+def test_port_prices_published_zamba2_from_its_fields():
+    from repro_torch.config import get_arch as port_arch
+    from repro_torch.core.costmodel import CostModel as PortCostModel
+    c = port_arch("zamba2-7b-instruct")
+    cm = PortCostModel(c)
+    hand = _zamba2_published_hand()
+    assert c.param_count() == hand
+    assert hand == pytest.approx(7.36e9, rel=1e-3)
+    assert cm.weight_bytes() == 2 * hand
+    # float32 SSM state: 81 layers x 14.68 MB at B = 8
+    assert 8 * cm.state_bytes() == 81 * 8 * 112 * 64 * 64 * 4
+    assert 8 * 112 * 64 * 64 * 4 == pytest.approx(14.68e6, rel=1e-3)
+    # the 13 sites' bf16 k, v of 32 heads of 224
+    assert cm.kv_bytes_prefill(512, 1) == pytest.approx(
+        13 * 2 * 2 * 32 * 224 * 512 + cm.state_bytes())
+    ssm = 2 * (3584 * (2 * 7168 + 2 * 2 * 64 + 112) + 7168 * 3584) \
+        + 4 * 112 * 64 * 64
+    s, n = 512, 128
+    ctx = s + n / 2
+    site = (2 * 7168 * 3 * 7168 + 2 * 7168 * 3584 + 4 * ctx * 32 * 224
+            + 3 * 2 * 3584 * 14336 + 2 * 128 * (3584 + 28672)
+            + 2 * 3584 * 3584)
+    assert cm.decode_flops(s, [n]) == pytest.approx(
+        (n - 1) * (81 * ssm + 13 * site), rel=1e-12)
+
+
+def test_port_prices_zamba2_simplification_as_before():
+    """The JAX package's simplification (``zamba2-7b``) keeps the port's
+    numbers of before the published block came in."""
+    from repro_torch.config import get_arch as port_arch
+    from repro_torch.core.costmodel import CostModel as PortCostModel
+    cm = PortCostModel(port_arch("zamba2-7b"))
+    assert cm.weight_bytes() == 13_499_298_240.0
+    assert cm.state_bytes() == 148_635_648
+    assert cm.kv_bytes_decode([1]) == 186_368.0
+    assert cm.prefill_flops(512, 8) == 74_402_704_130_048.0
+    assert cm.decode_flops(512, [128] * 8) == 18_515_855_540_224.0

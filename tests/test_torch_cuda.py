@@ -1692,6 +1692,83 @@ def test_recurrent_captured_step_equals_eager_and_replays_bitwise(cuda, arch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mamba2_decode_kernel_vs_op_chain(cuda, dtype):
+    """``kops.mamba2_decode`` (two kernels) against ``block_decode``'s op
+    chain at Zamba2-7B-Instruct's widths (H 112 of P 64, N 64, two
+    groups, conv 4 with bias), B = 8, random state and weights: the conv
+    state equal bitwise, the SSM state within 1e-6 (the same float32
+    operations in the same order), the layer's output within one unit of
+    the model type's last place (the S C sum's order differs, which may
+    round y one ulp apart) on the output's scale."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.models import mamba2
+    cfg = dataclasses.replace(get_arch("zamba2-7b-instruct"), dtype=dtype)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = mamba2.init_block(cfg, gen, dt)
+    H, C = 112, mamba2.conv_channels(cfg)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device="cuda")
+    p.update(conv_b=(0.1 * rnd(C)).to(dt), D=rnd(H),
+             dt_bias=rnd(H) - 3.0, A_log=torch.log(1 + 15 * rnd(H).abs()),
+             gate_norm=(1 + 0.1 * rnd(7168)).to(dt))
+    state = {"ssm": 0.5 * rnd(8, H, 64, 64),
+             "conv": rnd(8, 3, C).to(dt)}
+    u = rnd(8, 1, 3584).to(dt)
+    s1 = {k: v.clone() for k, v in state.items()}
+    s2 = {k: v.clone() for k, v in state.items()}
+    ops.reset_launch_counts()
+    want = mamba2.block_decode(cfg, p, u, s1, use_kernel=False)
+    assert not any(ops.launch_counts().values())
+    got = mamba2.block_decode(cfg, p, u, s2, use_kernel=True)
+    assert ops.launch_counts()["mamba2_scan_step"] == 1
+    assert torch.equal(s2["conv"], s1["conv"])
+    torch.testing.assert_close(s2["ssm"], s1["ssm"], rtol=1e-6, atol=1e-6)
+    ulp = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -20
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 4 * ulp * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8])
+def test_published_zamba2_loop_equals_reference(cuda, bits):
+    """The published Zamba2 block (two groups, a site over the
+    concatenation, bf16) at its own widths cut to 3 Mamba2 layers with a
+    site before layer 1: its step captured in the device loop equals
+    ``generate_reference`` bitwise, and launches ``mamba2_decode`` once a
+    layer and step, ``add_norm``, ``rope_qk_write`` once a site and step,
+    and no other kernel of the port."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.serving import engine as eng_mod
+    cfg = get_arch("zamba2-7b-instruct")
+    cfg = cfg.scaled(n_layers=3, vocab=512, hybrid=dataclasses.replace(
+        cfg.hybrid, sites=(1,)))
+    eng = eng_mod.ServingEngine(cfg, batch_capacity=8, s_max=32, n_max=16,
+                                quant_bits=8, seed=5, device="cuda")
+    prompts, caps = _family_prompts(4), [16, 3, 16, 9, 16, 1, 16, 12]
+    eng.generate(prompts, caps, quant_bits=bits)         # the capture
+    ops.reset_launch_counts()
+    a = eng.generate(prompts, caps, quant_bits=bits)
+    counts = ops.launch_counts()
+    assert counts["decode_loop"] == 1
+    assert counts["mamba2_scan_step"] == counts["mamba2_gate_norm"] \
+        == 3 * 16 and counts["add_norm"] > 0
+    assert counts["rope_qk_write"] == 16                # one site
+    assert not any(v for k, v in counts.items() if k not in (
+        "decode_loop", "mamba2_scan_step", "mamba2_gate_norm", "add_norm",
+        "rope_qk_write"))
+    b = eng.generate_reference(prompts, caps, quant_bits=bits)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    assert eng.captures[-1]["ssm_state_bytes"] == 2 * sum(
+        x.nbytes for layer in eng._gen.cache for k, x in layer.items()
+        if k in ("ssm", "conv"))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_refilled_row_on_the_card(cuda, arch):
     """A row refilled at step 4 through the device loop equals the same

@@ -163,7 +163,14 @@ def test_config_copy_matches_reference(arch):
         x, y = getattr(a, sub), getattr(b, sub)
         assert (x is None) == (y is None), sub
         if x is not None:
-            assert dataclasses.asdict(x) == dataclasses.asdict(y), sub
+            # the port's fields beyond the JAX package's (the published
+            # Zamba2 block's groups, conv bias and site list) sit at the
+            # defaults that give the JAX package's model
+            ours, theirs = dataclasses.asdict(y), dataclasses.asdict(x)
+            assert {k: ours[k] for k in theirs} == theirs, sub
+            assert {k: v for k, v in ours.items() if k not in theirs} == \
+                {k: v for k, v in dataclasses.asdict(type(y)()).items()
+                 if k not in theirs}, sub
     assert a.param_count() == b.param_count()
 
 
