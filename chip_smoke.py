@@ -166,9 +166,10 @@ Phases (any failure exits non-zero and prints no result):
    layers of two groups, two shared blocks at 13 sites over concat(x,
    embedding)), W8A16: ``generate == generate_reference`` on the first
    ``generate`` after its capture; ``dftsp`` epochs counted on their own
-   (``mamba2_decode``, ``add_norm``, ``rope_qk_write`` and the device loop
-   launch, no K1-K7 counter moves: its KERNELS rows' launches); one decode
-   step's kernel calls and its eager and device ms; the memory peak.
+   (``mamba2_decode``, ``add_norm``, ``rope_qk_write``, K4 at each site
+   (13 a step) and the device loop launch, no other K1-K7 counter moves:
+   its KERNELS rows' launches); one decode step's kernel calls and its
+   eager and device ms; the memory peak.
 10. Training (M10), after zamba2-7b-instruct is freed and outside
    ``no_grad``;
    float weights, so no K1-K7 counter (nor the decode loop) may move.
@@ -264,6 +265,7 @@ ROUTER_MATMULS = [("router", 1024, 32)]
 # (32 heads of 224 over 32, from the 7168-wide concat(x, embedding)) and
 # the widths of its RMSNorms (3584; 7168 over the concatenation)
 ATTN_ZAMBA2 = dict(ATTN, D=3584, nh=32, nkv=32, dh=224)
+ZAMBA2_SCALE = (224 / 2) ** -0.5        # a site's logit scale, (dh / 2)^-1/2
 # the new configs of the port, each reduced for the small-reference phase
 FAMILY_ARCHS = ("deepseek-coder-33b", "mistral-large-123b", "qwen3-1.7b",
                 "mixtral-8x22b", "granite-moe-1b-a400m", "internvl2-26b")
@@ -747,9 +749,12 @@ def _rows_invariant(run, B, what):
               f"{what}: row {r} alone != row {r} in the batch")
 
 
-def flash_decode_phase(shape=ATTN, seed=2):
+def flash_decode_phase(shape=ATTN, seed=2, scale=None, chain=None):
     """K4 at a decode shape: BLOOM-3B's (B=8, W=640, nh=nkv=32, dh=80) or
-    BLOOM-7B1's (dh=128)."""
+    BLOOM-7B1's (dh=128), its logits scaled by ``scale`` (None:
+    1/sqrt(dh)).  The plain column times ``chain(q, k, v, n_valid)`` where
+    given (the op chain a model ran before K4), else the plain version."""
+    import functools
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     B, nh, nkv, dh, W, nv = (shape[k] for k in ("B", "nh", "nkv", "dh", "W",
@@ -763,14 +768,14 @@ def flash_decode_phase(shape=ATTN, seed=2):
     rows = torch.randint(1, W + 1, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
     for n_valid in (nv, W, 1, rows) + _split_edges(fd):
-        g32 = fd.flash_decode_cuda(q, k, v, n_valid)
-        w32 = fd.flash_decode_plain(q, k, v, n_valid)
+        g32 = fd.flash_decode_cuda(q, k, v, n_valid, scale)
+        w32 = fd.flash_decode_plain(q, k, v, n_valid, scale)
         _assert_close(g32, w32, F32_TOL, "flash_decode f32")
         f32_err = max(f32_err, _max_err(g32, w32))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     for n_valid in (nv, W, rows) + _split_edges(fd):
-        got = fd.flash_decode_cuda(qb, kb, vb, n_valid)
-        want = fd.flash_decode_plain(qb, kb, vb, n_valid)
+        got = fd.flash_decode_cuda(qb, kb, vb, n_valid, scale)
+        want = fd.flash_decode_plain(qb, kb, vb, n_valid, scale)
         _assert_close(got, want, BF16_TOL, "flash_decode bf16")
         max_err = max(max_err, _max_err(got, want))
     # rows: alone, in the batch, over a 1024-slot cache with other values
@@ -780,16 +785,18 @@ def flash_decode_phase(shape=ATTN, seed=2):
     kw, vw = (torch.cat([t, e], 1) for t, e in zip((kb, vb), extra))
     _rows_invariant(lambda r, wide: fd.flash_decode_cuda(
         qb[r], *((kw[r], vw[r]) if wide else (kb[r], vb[r])),
-        rows[r].contiguous()), B, f"flash_decode {nh} x {dh}")
+        rows[r].contiguous(), scale), B, f"flash_decode {nh} x {dh}")
     del kw, vw, extra
     n_copy = max(1, min(32, math.ceil(ROTATE_BYTES / (2 * kb.numel() * 2))))
     kvs = [(kb.clone(), vb.clone()) for _ in range(n_copy)]
-    run = lambda i: fd.flash_decode_cuda(qb, *kvs[i], nv)  # noqa: E731
-    plain = lambda i: fd.flash_decode_plain(qb, *kvs[i], nv)  # noqa: E731
+    run = lambda i: fd.flash_decode_cuda(qb, *kvs[i], nv, scale)  # noqa: E731
+    plain_fn = chain or functools.partial(fd.flash_decode_plain, scale=scale)
+    plain = lambda i: plain_fn(qb, *kvs[i], nv)  # noqa: E731
     q4 = qb[:, :, None]                                  # (B, nh, 1, dh)
     lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         q4, kvs[i][0][:, :nv].transpose(1, 2),
-        kvs[i][1][:, :nv].transpose(1, 2), enable_gqa=nh != nkv)
+        kvs[i][1][:, :nv].transpose(1, 2), enable_gqa=nh != nkv,
+        scale=scale)
     # the library call computes the same function (the first nv slots)
     _assert_close(lib(0)[:, :, 0], plain(0), LIBRARY_TOL,
                   "scaled_dot_product_attention yardstick")
@@ -1532,6 +1539,11 @@ KERNELS = [
     ("mamba2_decode", "mamba2_scan_step",
      "src/repro_torch/csrc/mamba2_decode.cu",
      "src/repro/models/mamba2.py:203", "zamba2i_dftsp_w8a16"),
+    # K4 at a site's 32 x 224 and scale: the JAX package's hybrid decodes
+    # its attention with no kernel (gqa_attention)
+    ("flash_decode_zamba2", "flash_decode",
+     "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/models/common.py:345", "zamba2i_dftsp_w8a16"),
 ]
 
 
@@ -1728,7 +1740,29 @@ def zamba2_kernel_rows():
         rows[name] = (err, ADD_NORM_TOL, t)
     err, t = rope_qk_write_case(Z, 55)
     rows["decode_glue_rope_qk_write_zamba2"] = (err, ROPE_TOL, t)
+    err, tol, t = flash_decode_phase(Z, 56, ZAMBA2_SCALE, _site_chain)
+    t["library_call"] += " (scale=(224/2)^-1/2)"
+    t["shape"] = (f"one Zamba2-7B-Instruct site's attention: B={Z['B']} "
+                  f"W={Z['W']} n_valid={Z['n_valid']} nh={Z['nh']} "
+                  f"nkv={Z['nkv']} dh={Z['dh']} bf16, scale (dh/2)^-1/2; "
+                  f"plain_ms: the op chain the site ran before K4 "
+                  f"(gqa_attention: the mask, float32 copies of the whole "
+                  f"slab, einsums)")
+    rows["flash_decode_zamba2"] = (err, tol, t)
     return rows
+
+
+def _site_chain(q, k, v, n_valid):
+    """A Zamba2 site's decode attention as ``decode_attention_plain`` ran
+    it: the validity mask, then ``gqa_attention``'s float32 copies of the
+    whole slab, logits, softmax and the probabilities rounded to v's type
+    before P @ V."""
+    from repro_torch.models import common
+    B, W = q.shape[0], k.shape[1]
+    nv = torch.full((B,), n_valid, dtype=torch.int32, device=q.device)
+    return common.gqa_attention(q[:, None], k, v,
+                                common._valid_mask(nv, W),
+                                ZAMBA2_SCALE)[:, 0]
 
 
 def kernel_row(entry, runs, kernels):
@@ -3201,19 +3235,20 @@ def zamba2_instruct_phase(cfg, n_epochs: int = 2):
     load).  ``generate == generate_reference`` at W8A16 on the first
     ``generate`` after its capture; ``dftsp`` epochs at W8A16 counted on
     their own (the launches its KERNELS rows report): ``mamba2_decode``'s
-    two kernels, ``add_norm``, ``rope_qk_write`` and the device loop
-    launch, no K1-K7 counter moves; one decode step's kernel calls (each
-    Mamba2 layer's two, each site's rope and write), its eager and device
-    ms; the device memory peak."""
+    two kernels, ``add_norm``, ``rope_qk_write``, K4 (``flash_decode``,
+    each site's attention) and the device loop launch, no other K1-K7
+    counter moves; one decode step's kernel calls (each Mamba2 layer's
+    two, each site's rope and write and its K4), its eager and device ms;
+    the device memory peak."""
     from repro_torch.kernels import ops
     torch.cuda.reset_peak_memory_stats()
     prompts, caps = _prompts(cfg, BATCH, S_MAX, N_MAX)
     engine = _family_engine(cfg, "")
-    check(engine.decode_tier(8) == "none" and not engine.paged_capable,
-          f"{cfg.arch_id}: expected no attention-kernel tier and no paged "
-          f"path")
+    check(engine.decode_tier(8) == "flash" and not engine.paged_capable,
+          f"{cfg.arch_id}: expected the sites on K4 (tier \"flash\", got "
+          f"{engine.decode_tier(8)!r}) and no paged path")
     own = ("mamba2_scan_step", "mamba2_gate_norm", "add_norm",
-           "rope_qk_write")
+           "rope_qk_write", "flash_decode")
     others = tuple(c for c in ops.launch_counts()
                    if c not in own + ("decode_loop",))
     n0 = len(engine.captures)
@@ -3229,11 +3264,12 @@ def zamba2_instruct_phase(cfg, n_epochs: int = 2):
     calls = timing["kernel_calls_per_step"]
     L, n_sites = cfg.n_layers, len(cfg.hybrid.sites)
     check(calls.get("mamba2_scan_step") == calls.get("mamba2_gate_norm") == L
-          and calls.get("rope_qk_write") == n_sites
-          and calls.get("add_norm", 0) > L and set(calls) <= set(own),
+          and calls.get("rope_qk_write") == calls.get("flash_decode")
+          == n_sites and calls.get("add_norm", 0) > L
+          and set(calls) <= set(own),
           f"{cfg.arch_id}: a decode step launched {calls}, expected "
-          f"mamba2_decode {L} times, rope_qk_write {n_sites}, add_norm and "
-          f"nothing else")
+          f"mamba2_decode {L} times, rope_qk_write and flash_decode "
+          f"{n_sites} each, add_norm and nothing else")
     peak = torch.cuda.max_memory_allocated()
     log(f"slice: {cfg.arch_id}: generate == generate_reference at W8A16 "
         f"({check_ms:.0f} ms); a step's kernel calls {calls}; device "

@@ -428,9 +428,10 @@ extern "C" {
 
 // q (B, nh, dh), k/v (B, W, nkv, dh), out (B, nh, dh): float32 (bf16 = 0)
 // or bfloat16 (bf16 = 1), contiguous.  n_valid: (B,) int32 device pointer,
-// or null to use nv_scalar for every row.  scale = 1/sqrt(dh), applied to
-// q.  ws: B * nh * ceil(W / SPLIT) * (dh + 2) float32 of scratch.  wide:
-// 16-byte loads (dh % 8 == 0 and k, v 16-byte aligned).
+// or null to use nv_scalar for every row.  scale: the logits' factor
+// (1/sqrt(dh), or a model's own), applied to q.  ws: B * nh *
+// ceil(W / SPLIT) * (dh + 2) float32 of scratch.  wide: 16-byte loads
+// (dh % 8 == 0 and k, v 16-byte aligned).
 int flash_decode(const void* q, const void* k, const void* v,
                  const void* n_valid, int nv_scalar, void* out, void* ws,
                  int B, int nh, int nkv, int W, int dh, float scale, int bf16,

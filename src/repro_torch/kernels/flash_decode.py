@@ -18,6 +18,7 @@ depend only on (B, nh, nkv, W, dh).
 
 q (B, nh, dh) attends over k/v (B, W, nkv, dh); slots >= n_valid (an int
 for every row, or a (B,) int32 tensor) are masked.  n_valid must be >= 1.
+K4 scales the logits by ``scale`` (None: 1/sqrt(dh), K5's only factor).
 Paged: slot j of row b lives in page ``table[b, j // bt]`` at offset
 ``j % bt`` of k/v pages (P, bt, nkv, dh), W = n_b * bt.
 
@@ -43,7 +44,7 @@ same functions in plain PyTorch.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,14 +118,16 @@ def fused_plan(D: int, nkv: int, G: int, dh: int) -> FusedPlan:
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
+                       n_valid: Union[int, torch.Tensor],
+                       scale: Optional[float] = None) -> torch.Tensor:
     B, nh, dh = q.shape
     W, nkv = k.shape[1], k.shape[2]
     G = nh // nkv
     qf = q.reshape(B, nkv, G, dh).to(torch.float32)
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))   # f32, exact
+    if scale is None:
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))  # f32, exact
     logits = torch.einsum("bkgd,bskd->bkgs", qf, kf) * scale
     if not isinstance(n_valid, torch.Tensor):
         n_valid = torch.full((B,), n_valid, device=q.device)
@@ -281,7 +284,8 @@ def _wide(dh: int, tensors, strides, elt: int) -> int:
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
+                      n_valid: Union[int, torch.Tensor],
+                      scale: Optional[float] = None) -> torch.Tensor:
     _check_q(q)
     B, nh, dh = q.shape
     W, nkv = k.shape[1], k.shape[2]
@@ -300,7 +304,8 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library("flash_decode")
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv_ptr,
                           nv_scalar, out.data_ptr(), ws.data_ptr(), B, nh,
-                          nkv, W, dh, 1.0 / dh ** 0.5,
+                          nkv, W, dh,
+                          1.0 / dh ** 0.5 if scale is None else scale,
                           int(q.dtype == torch.bfloat16),
                           _wide(dh, (k, v), (dh,), q.element_size()),
                           torch.cuda.current_stream(q.device).cuda_stream)

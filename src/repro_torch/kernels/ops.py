@@ -7,7 +7,7 @@ PyTorch version.  Any other device raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -230,12 +230,14 @@ def decode_kernel_tier(p, cfg) -> str:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
+                 n_valid: Union[int, torch.Tensor],
+                 scale: Optional[float] = None) -> torch.Tensor:
     """GQA decode attention: q (B, nh, dh) against k/v (B, W, nkv, dh);
-    slots >= n_valid (int or (B,) int32) are masked."""
+    slots >= n_valid (int or (B,) int32) are masked; the logits are scaled
+    by ``scale`` (None: 1/sqrt(dh))."""
     if _on_cuda(q):
-        return _fd.flash_decode_cuda(q.contiguous(), k, v, n_valid)
-    return _fd.flash_decode_plain(q, k, v, n_valid)
+        return _fd.flash_decode_cuda(q.contiguous(), k, v, n_valid, scale)
+    return _fd.flash_decode_plain(q, k, v, n_valid, scale)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

@@ -10,7 +10,8 @@ is a list of per-layer dicts whose leaves hold the batch on axis 0, so the
 serving engine splices refilled rows the same way for all of them.  Only
 the transformer family has a paged decode step and takes ``use_kernel``;
 the others decode with no attention kernel, as in the JAX package (the
-published Zamba2 layout's step runs the Mamba2 and decode-glue kernels).
+published Zamba2 layout's step runs the Mamba2 and decode-glue kernels,
+and ``flash_decode`` at its sites).
 """
 from __future__ import annotations
 

@@ -22,7 +22,10 @@ kernel, as in the JAX package; the router goes through ``mm``.  Cache
 writes update the cache tensors in place (the JAX package returns new
 arrays): a decode step then costs no cache copy.  The recurrent, hybrid
 and audio families take ``decode_attention_plain`` on every device: the
-path the JAX package serves them on, with no kernel.
+path the JAX package serves them on, with no kernel; but the published
+Zamba2 block's sites (32 heads of 224 in Zamba2-7B-Instruct: the unfused
+tier) take its ``glue`` route, ``flash_decode`` (K4) over their bf16 slot
+caches at the block's own logit scale.
 
 Sharding is expressed through logical-axis constraints (``constrain``,
 ``seq_shard``) at the JAX package's places; they return their input, with
@@ -491,15 +494,17 @@ def _valid_mask(n_valid: torch.Tensor, W: int) -> torch.Tensor:
 
 def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
-                     use_rope: bool = True, use_kernel: bool = True
-                     ) -> torch.Tensor:
-    """One-token decode step of the transformer family.  x: (B, 1, D);
+                     use_rope: bool = True, use_kernel: bool = True,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One-token decode step of the transformer family and of the
+    published Zamba2 block's sites.  x: (B, 1, D);
     pos: the current position, a host int, an int32 0-d tensor on x's
     device or a ``kops.DecodePos`` (all three take the same tensor code, so
     they give the same bits).  Writes the token into the cache in place;
     returns the attention output (B, 1, D).  With ``use_kernel``, int8
     projections that ``kops.fusable_decode`` admits take the fused tier
-    (``flash_decode_fused``), others ``flash_decode``.
+    (``flash_decode_fused``), others ``flash_decode``, its logits scaled
+    by ``scale`` (None: 1/sqrt(d_head); the fused tier takes no other).
     ``use_kernel=False`` takes ``decode_attention_plain``, which serves
     this family on CPU tensors only: on a CUDA tensor its decode attention
     is a kernel."""
@@ -509,7 +514,7 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                              "runs on the CPU only; CUDA tensors go through "
                              "the flash_decode kernel")
         return decode_attention_plain(p, cfg, x, cache_k, cache_v, pos,
-                                      use_rope)
+                                      use_rope, scale)
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
     if kops.fusable_decode(p, cfg):
@@ -524,7 +529,8 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))
-    out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid)[:, None]
+    out = kops.flash_decode(q[:, 0], cache_k, cache_v, n_valid,
+                            scale)[:, None]
     out = mm(out.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"])
     return constrain(out, "batch", None, None)
 
@@ -537,21 +543,22 @@ def decode_attention_plain(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """One-token decode attention with no attention kernel, on every
     device: the projections, rope, the write at slot pos % W and the
     masked softmax over the slots below min(pos + 1, W), its logits scaled
-    by ``scale`` (None: 1/sqrt(d_head)).  ``glue``: rope and the write
-    through ``_decode_qkv_write`` (the decode-glue kernel off a mesh; the
-    same values on the CPU).  It is the path the JAX package
+    by ``scale`` (None: 1/sqrt(d_head)).  It is the path the JAX package
     serves the recurrent, hybrid and audio families on (Zamba2's shared
     attention, Whisper's self-attention: its engine refuses ``use_kernel``
     for them); the transformer family reaches it only on CPU tensors,
-    through ``decode_attention(use_kernel=False)``."""
+    through ``decode_attention(use_kernel=False)``.  ``glue``: the decode
+    kernels' route instead, ``decode_attention`` (off a mesh rope and the
+    write on the decode-glue kernel, then ``flash_decode`` over the slot
+    cache in place, at ``scale``): the published Zamba2 block's sites,
+    whose unfused layout the JAX package has no kernel for."""
+    if glue:
+        return decode_attention(p, cfg, x, cache_k, cache_v, pos, use_rope,
+                                scale=scale)
     B = x.shape[0]
     dp = kops.decode_pos(pos, x.device)
-    if glue:
-        q = _decode_qkv_write(p, cfg, x, dp, cache_k, cache_v,
-                              use_rope=use_rope)
-    else:
-        q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
-        cache_write(((cache_k, k1), (cache_v, v1)), dp)
+    q, k1, v1 = qkv_proj(p, cfg, x, kops.rope_positions(dp, B), use_rope)
+    cache_write(((cache_k, k1), (cache_v, v1)), dp)
     W = cache_k.shape[1]
     n_valid = dp.per_row(("n_valid", W), B,
                          lambda p: torch.clamp(p + 1, max=W))

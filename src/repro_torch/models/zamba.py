@@ -19,7 +19,9 @@ group its K Mamba2 states {"ssm" (B, H, P, N) float32, "conv" (B, K-1,
 C)}, then the group's shared-attention slot cache {"k", "v"} (B, W, nkv,
 dh); then the tail's states.  ``decode_step`` updates it in place.  The
 shared attention decodes through ``common.decode_attention_plain``: the
-JAX package serves this family on that path, with no kernel.
+JAX package serves this family on that path, with no kernel.  The
+published layout's sites (below) take its ``glue`` route: the decode-glue
+kernel and ``flash_decode`` (K4) over the slot cache.
 
 **The published layout** (``cfg.hybrid.sites`` non-empty; Zamba2-7B-
 Instruct, after ``transformers``' ``modeling_zamba2.py``).  The n_layers
@@ -390,7 +392,9 @@ def _decode_published(cfg: ModelConfig, params: Params, cache: Cache,
     """``decode_step``'s body in the published layout: logits (B, Vp).
     Each residual add goes with the norm after it (``common.add_norm``:
     one kernel on CUDA), a site's rope and cache write are the decode-glue
-    kernel, and each Mamba2 layer's step between its projections is
+    kernel, a site's attention reads its bf16 slot cache in place through
+    ``kops.flash_decode`` (K4, at the block's scale; its plain version on
+    the CPU), and each Mamba2 layer's step between its projections is
     ``kops.mamba2_decode`` on CUDA: a step launches a few kernels a layer,
     not the op chains' ~60.  Those kernels take whole tensors on one card:
     on CUDA under a mesh it raises rather than run the chains there."""

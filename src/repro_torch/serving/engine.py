@@ -57,8 +57,9 @@ matmuls do not route through ``common.mm``'s kernels there either), and
 decode with no attention kernel: ``use_kernel`` does not apply to them
 (the JAX package's engine refuses it for them).  Of them only the
 published Zamba2 layout (``zamba2-7b-instruct``) launches kernels of the
-port in its decode step: ``mamba2_decode``, ``add_norm`` and
-``rope_qk_write``.
+port in its decode step: ``mamba2_decode``, ``add_norm``,
+``rope_qk_write`` and, at each of its sites, ``flash_decode`` (K4) over
+the site's slot cache.
 
 Every data-plane entry (``generate``, ``start_chunked``,
 ``refill_chunked``, ``generate_chunked``, ``poll_chunked``) is a root span
@@ -90,6 +91,7 @@ import torch
 from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_loop import DeviceLoop, kernel_nodes
+from repro_torch.models import zamba
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.common import torch_dtype
 from repro_torch.quant.ptq import QTensor, dequantize_tree, quantize_tree, \
@@ -306,9 +308,12 @@ class ServingEngine:
         ``bits`` (engine default when None) routes to: ``"kv8"`` (int8 KV
         cache, no decode-attention kernel), ``"fused"`` (K6/K7) or
         ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``; for
-        the recurrent, hybrid and audio families ``"none"`` (no kernel)."""
+        the published Zamba2 layout ``"flash"`` (its sites on K4), for the
+        other recurrent, hybrid and audio families ``"none"`` (no
+        kernel)."""
         if not self.transformer:
-            return "none"
+            return "flash" if self.cfg.family == "hybrid" \
+                and zamba.published(self.cfg) else "none"
         params = self.params_for(self.default_bits if bits is None
                                  else bits)
         return kops.decode_kernel_tier(params["layers"][0]["attn"], self.cfg)

@@ -466,6 +466,33 @@ def test_flash_decode_cuda_vs_plain(cuda, G, dh):
                                tfd.flash_decode_plain(*bf, 57), **BF16_TOL)
 
 
+@pytest.mark.cuda
+def test_flash_decode_cuda_at_a_zamba2_site(cuda):
+    """K4 at a published Zamba2 site's shape (B = 8, 32 heads of 224 over
+    32, W = 640, per-row n_valid 513-640) and scale (224 / 2)^-1/2, float32
+    and bf16, against the plain version within K4's limits above; with no
+    scale, K4 at BLOOM-3B's 32 x 80 takes 1/sqrt(d_head) as before: the
+    same bits as that float passed as the scale."""
+    scale = (224 / 2) ** -0.5
+    q, k, v, _ = _decode_inputs(8, 32, 32, 224, 640, cuda, seed=3)
+    nv = torch.tensor([513, 640, 576, 600, 520, 639, 577, 612],
+                      dtype=torch.int32, device=cuda)
+    got = tfd.flash_decode_cuda(q, k, v, nv, scale)
+    torch.testing.assert_close(got, tfd.flash_decode_plain(q, k, v, nv,
+                                                           scale),
+                               rtol=1e-4, atol=1e-4)
+    assert float((tfd.flash_decode_cuda(q, k, v, nv) - got).abs().max()) \
+        > 1e-3
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    torch.testing.assert_close(tfd.flash_decode_cuda(*bf, nv, scale),
+                               tfd.flash_decode_plain(*bf, nv, scale),
+                               **BF16_TOL)
+    q, k, v, nv = _decode_inputs(8, 32, 32, 80, 640, cuda, seed=4)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    assert torch.equal(tfd.flash_decode_cuda(*bf, nv),
+                       tfd.flash_decode_cuda(*bf, nv, 1.0 / 80 ** 0.5))
+
+
 def _paged_inputs(B, nh, nkv, dh, n_b, bt, device, tail=None, seed=0):
     """q, k/v pages of a shuffled arena (P = B * n_b + 2, possibly with a
     wider (nkv', dh') tail, returned as the leading-corner view), a table
@@ -1738,8 +1765,9 @@ def test_published_zamba2_loop_equals_reference(cuda, bits):
     concatenation, bf16) at its own widths cut to 3 Mamba2 layers with a
     site before layer 1: its step captured in the device loop equals
     ``generate_reference`` bitwise, and launches ``mamba2_decode`` once a
-    layer and step, ``add_norm``, ``rope_qk_write`` once a site and step,
-    and no other kernel of the port."""
+    layer and step, ``add_norm``, ``rope_qk_write`` and ``flash_decode``
+    (K4, the site's attention) once a site and step, and no other kernel
+    of the port."""
     import dataclasses
     from repro_torch.config import get_arch
     from repro_torch.serving import engine as eng_mod
@@ -1756,10 +1784,10 @@ def test_published_zamba2_loop_equals_reference(cuda, bits):
     assert counts["decode_loop"] == 1
     assert counts["mamba2_scan_step"] == counts["mamba2_gate_norm"] \
         == 3 * 16 and counts["add_norm"] > 0
-    assert counts["rope_qk_write"] == 16                # one site
+    assert counts["rope_qk_write"] == counts["flash_decode"] == 16  # a site
     assert not any(v for k, v in counts.items() if k not in (
         "decode_loop", "mamba2_scan_step", "mamba2_gate_norm", "add_norm",
-        "rope_qk_write"))
+        "rope_qk_write", "flash_decode"))
     b = eng.generate_reference(prompts, caps, quant_bits=bits)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_array_equal(a.lengths, b.lengths)

@@ -218,6 +218,80 @@ def test_engine_serves_it():
         assert float((lg.max(-1).values - served).max()) <= TOL
 
 
+# -- a site's decode attention on K4 -----------------------------------------
+
+SITE_SCALE = (224 / 2) ** -0.5
+
+
+def _site_slab(B, nh, nkv, dh, W, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((B, nh, dh), generator=g),
+            torch.randn((B, W, nkv, dh), generator=g),
+            torch.randn((B, W, nkv, dh), generator=g))
+
+
+def test_flash_decode_at_a_site_equals_the_plain_attention():
+    """``kops.flash_decode`` at a published site's shape (32 heads of 224
+    over 32, W = 640, per-row n_valid 513-640) and scale, on the CPU,
+    equals the masked softmax ``decode_attention_plain`` runs
+    (``gqa_attention`` over the slots below n_valid) within 1e-6 at
+    float32; the default scale gives other values."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common
+    W = 640
+    q, k, v = _site_slab(4, 32, 32, 224, W, SEEDS[0])
+    nv = torch.tensor([513, 577, 600, 640], dtype=torch.int32)
+    got = kops.flash_decode(q, k, v, nv, scale=SITE_SCALE)
+    want = common.gqa_attention(q[:, None], k, v, common._valid_mask(nv, W),
+                                SITE_SCALE)[:, 0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert float((kops.flash_decode(q, k, v, nv) - want).abs().max()) > 1e-3
+
+
+def test_flash_decode_plain_default_scale_is_unchanged():
+    """With no scale, the plain version at BLOOM-3B's 32 x 80 is bitwise
+    its function before the argument: logits scaled by float32
+    1/sqrt(d_head) computed in float32."""
+    import numpy as np
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v = _site_slab(4, 32, 32, 80, 640, SEEDS[1])
+    nv = torch.tensor([1, 63, 64, 640], dtype=torch.int32)
+    s = float(np.float32(1.0) / np.sqrt(np.float32(80)))
+    logits = torch.einsum("bkgd,bskd->bkgs", q.reshape(4, 32, 1, 80), k) * s
+    mask = torch.arange(640)[None, :] < nv[:, None]
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    want = torch.einsum("bkgs,bskd->bkgd", torch.softmax(logits, dim=-1),
+                        v).reshape(4, 32, 80)
+    assert torch.equal(fd.flash_decode_plain(q, k, v, nv), want)
+    assert torch.equal(fd.flash_decode_plain(q, k, v, nv, scale=s), want)
+
+
+@torch.no_grad()
+def test_published_decode_step_takes_flash_decode_once_a_site(monkeypatch):
+    """A CPU decode step of the small published model calls
+    ``kops.flash_decode`` once a site, at the block's scale, and never the
+    masked softmax over float32 copies (``gqa_attention``); its logits
+    still equal the reference's within ``TOL`` (the tests above)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common
+    cfg = _cfg()
+    params = ref.make_params(MODEL, SEEDS[0], "cpu")
+    tok = _tokens(SEEDS[0])
+    _, cache = zamba.prefill(cfg, params, {"tokens": tok[:, :S_MAX]},
+                             cache_len=S_MAX + N_FED)
+    scales, plain = [], []
+    real_fd, real_gqa = kops.flash_decode, common.gqa_attention
+    monkeypatch.setattr(kops, "flash_decode", lambda q, k, v, nv,
+                        scale=None: (scales.append(scale),
+                                     real_fd(q, k, v, nv, scale))[1])
+    monkeypatch.setattr(common, "gqa_attention", lambda *a, **kw: (
+        plain.append(1), real_gqa(*a, **kw))[1])
+    zamba.decode_step(cfg, params, cache, tok[:, S_MAX:S_MAX + 1], S_MAX)
+    assert scales == [zamba._attn_scale(cfg)] * len(SITES)
+    assert plain == []
+
+
 # -- the equations against transformers --------------------------------------
 
 def _hf_model(params):
