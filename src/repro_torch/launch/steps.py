@@ -351,12 +351,11 @@ def make_decode_fn(model: Model, pos: int):
     """One serve_step: decode a single token at position ``pos`` against
     the full cache (the dry-run's decode shapes), on the plain path
     (``use_kernel=False``: the JAX package's default, where the port's is
-    the kernel)."""
+    the kernel) where the model's steps take ``use_kernel``."""
+    kw = {"use_kernel": False} if model.kernel_weights else {}
+
     def step(params, cache, tokens):
-        if model.cfg.family in ("dense", "moe", "vlm"):
-            return model.decode_step(params, cache, tokens, pos,
-                                     use_kernel=False)
-        return model.decode_step(params, cache, tokens, pos)
+        return model.decode_step(params, cache, tokens, pos, **kw)
     return step
 
 

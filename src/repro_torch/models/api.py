@@ -7,11 +7,18 @@ encoder-decoder (``models.whisper``).
 ``build_model`` returns a :class:`Model` whose members are plain
 functions over a params dict, as in the JAX package.  Every family's cache
 is a list of per-layer dicts whose leaves hold the batch on axis 0, so the
-serving engine splices refilled rows the same way for all of them.  Only
-the transformer family has a paged decode step and takes ``use_kernel``;
-the others decode with no attention kernel, as in the JAX package (the
-published Zamba2 layout's step runs the Mamba2 and decode-glue kernels,
-and ``flash_decode`` at its sites).
+serving engine splices refilled rows the same way for all of them.  What
+the engine asks of a family its module states, where it differs from
+``build_model``'s default [in brackets]:
+- ``KERNEL_WEIGHTS`` [False]: True in the transformer's, whose quantized
+  trees keep QTensor leaves on ``quant_matmul`` and whose decode steps
+  take ``use_kernel``; other trees are dequantized at load (the JAX way).
+- ``decode_tier`` ["none"]: the transformer's ``kops.decode_kernel_tier``,
+  the published Zamba2 layout's "flash".
+- ``prompt_batch`` [the tokens]: a VLM and Whisper add zero stub embeddings.
+- ``state_bytes`` [None]: Zamba2's SSM and conv state bytes a step moves.
+- ``decode_step_paged`` [None]: the transformer's arena step.  xLSTM
+  keeps every default.
 """
 from __future__ import annotations
 
@@ -46,6 +53,10 @@ class Model:
     decode_step_paged: Any = None
     loss_fn: Any = None                      # (params, batch) -> (loss, metrics)
     input_specs: Any = None                  # (ShapeConfig) -> meta tensors
+    kernel_weights: bool = False             # serve QTensor trees, use_kernel
+    decode_tier: Callable = lambda params: "none"   # -> decode-attention tier
+    prompt_batch: Callable = lambda tokens: {"tokens": tokens}  # prefill's
+    state_bytes: Callable = lambda cache: None      # bytes a step moves
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
@@ -77,17 +88,18 @@ def build_model(cfg: ModelConfig) -> Model:
     from repro_torch.models import transformer, whisper, xlstm, zamba
     mod = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "ssm": xlstm, "hybrid": zamba, "audio": whisper}[cfg.family]
-    paged = getattr(mod, "decode_step_paged", None)
+    own = {name: functools.partial(getattr(mod, name), cfg)
+           for name in ("decode_step_paged", "decode_tier", "prompt_batch",
+                        "state_bytes") if hasattr(mod, name)}
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init_params, cfg),
         prefill=functools.partial(mod.prefill, cfg),
         decode_step=functools.partial(mod.decode_step, cfg),
         init_cache=functools.partial(mod.init_cache, cfg),
-        decode_step_paged=functools.partial(paged, cfg) if paged else None,
         loss_fn=functools.partial(mod.loss_fn, cfg),
         input_specs=functools.partial(mod.input_specs, cfg),
-    )
+        kernel_weights=getattr(mod, "KERNEL_WEIGHTS", False), **own)
 
 
 def meta(shape, dtype) -> torch.Tensor:

@@ -28,6 +28,7 @@ from repro_torch.utils.sharding import constrain
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
+KERNEL_WEIGHTS = True     # QTensor trees on quant_matmul; steps take use_kernel
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -253,6 +254,21 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
             lp["attn"], cfg, h, {name: leaf[l] for name, leaf in pages.items()},
             table, dp, use_kernel), use_kernel)
     return _unembed(cfg, params, h)[:, 0], pages
+
+
+def decode_tier(cfg: ModelConfig, params: Params) -> str:
+    """``kops.decode_kernel_tier`` of ``params``' first layer."""
+    return kops.decode_kernel_tier(params["layers"][0]["attn"], cfg)
+
+
+def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor):
+    """Prompt tokens as a batch; a VLM's adds zero stub patch embeddings."""
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.vlm.n_img_tokens, cfg.d_model),
+            dtype=common.torch_dtype(cfg), device=tokens.device)
+    return batch
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig):

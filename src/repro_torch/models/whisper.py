@@ -189,6 +189,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     return _unembed(params, x)[:, 0], cache
 
 
+def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor):
+    """Prompt tokens and the stub frontend's zero audio frame embeddings."""
+    return {"tokens": tokens, "audio_embeds": torch.zeros(
+        (tokens.shape[0], cfg.encdec.n_audio_frames, cfg.d_model),
+        dtype=common.torch_dtype(cfg), device=tokens.device)}
+
+
 def input_specs(cfg: ModelConfig, shape):
     """The step's inputs as meta tensors (the dry run's; no allocation):
     train and prefill take the encoder's (B, F, D) audio embeddings

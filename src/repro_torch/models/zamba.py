@@ -425,6 +425,17 @@ def _decode_published(cfg: ModelConfig, params: Params, cache: Cache,
     return _logits(cfg, params, h)[:, 0]
 
 
+def decode_tier(cfg: ModelConfig, params: Params) -> str:
+    """K4 ("flash") at the published layout's sites, else no kernel."""
+    return "flash" if published(cfg) else "none"
+
+
+def state_bytes(cfg: ModelConfig, cache: Cache) -> int:
+    """Twice the bytes of the SSM and conv state a decode step updates."""
+    return 2 * sum(leaf.nbytes for layer in cache
+                   for name, leaf in layer.items() if name in ("ssm", "conv"))
+
+
 def input_specs(cfg: ModelConfig, shape):
     """The step's inputs as meta tensors (the dry run's; no allocation)."""
     from repro_torch.models.api import token_specs

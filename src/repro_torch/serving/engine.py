@@ -48,18 +48,8 @@ precision and ``generate(..., quant_bits=...)`` serves one batch at the
 precision the scheduler decided.  Each precision is quantized once from
 the full-precision weights and cached (``params_for``).  A precision is an
 int (weight bits) or a ``(weight_bits, act_bits)`` pair; ``(8, 8)`` is
-W8A8.  The transformer family's quantized trees keep their QTensor leaves
-on every device: on a CUDA device they run through the hand-written
-kernels, on the CPU through the kernels' plain versions.  The recurrent,
-hybrid and audio families (xLSTM, Zamba2, Whisper) serve their quantized
-trees dequantized at load, on every device, as the JAX package does (their
-matmuls do not route through ``common.mm``'s kernels there either), and
-decode with no attention kernel: ``use_kernel`` does not apply to them
-(the JAX package's engine refuses it for them).  Of them only the
-published Zamba2 layout (``zamba2-7b-instruct``) launches kernels of the
-port in its decode step: ``mamba2_decode``, ``add_norm``,
-``rope_qk_write`` and, at each of its sites, ``flash_decode`` (K4) over
-the site's slot cache.
+W8A8.  What a model family is, the engine asks ``models.api.Model``,
+whose docstring states each family's facts.
 
 Every data-plane entry (``generate``, ``start_chunked``,
 ``refill_chunked``, ``generate_chunked``, ``poll_chunked``) is a root span
@@ -91,9 +81,7 @@ import torch
 from repro_torch.config import ModelConfig, get_arch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_loop import DeviceLoop, kernel_nodes
-from repro_torch.models import zamba
 from repro_torch.models.api import Model, build_model
-from repro_torch.models.common import torch_dtype
 from repro_torch.quant.ptq import QTensor, dequantize_tree, quantize_tree, \
     with_act_bits
 from repro_torch.serving import trace
@@ -223,19 +211,15 @@ class ServingEngine:
         self.s_max = s_max
         self.n_max = n_max
         self.eos_id = eos_id
-        # the transformer family's decode attention through flash_decode;
-        # the plain masked softmax (use_kernel=False) serves the CPU only.
-        # The other families decode with no kernel: the flag does not
-        # apply to them
-        self.transformer = cfg.family in ("dense", "moe", "vlm")
+        # use_kernel=False (the plain masked softmax) serves the CPU only
         if not use_kernel and self.device.type == "cuda" \
-                and self.transformer:
+                and self.model.kernel_weights:
             raise ValueError("use_kernel=False runs on the CPU only; on "
                              "CUDA decode attention is the flash_decode "
                              "kernel")
         self.use_kernel = bool(use_kernel)
         self._decode_kw = {"use_kernel": self.use_kernel} \
-            if self.transformer else {}
+            if self.model.kernel_weights else {}
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
@@ -272,7 +256,7 @@ class ServingEngine:
     def params_for(self, bits):
         """Weights at ``bits`` precision (int or (w, a) pair), quantized
         once and cached so the scheduler can swap the served method every
-        epoch.  The recurrent, hybrid and audio families' trees are
+        epoch.  Without the model's ``kernel_weights`` the trees are
         dequantized at load (fake-quant weights in the model dtype, as in
         the JAX package); their W8A8 tree is the W8A16 one."""
         bits = self._canon_bits(bits)
@@ -281,7 +265,7 @@ class ServingEngine:
                 p = self._raw_params
             elif isinstance(bits, int):
                 p = quantize_tree(self._raw_params, bits)
-                if not self.transformer:
+                if not self.model.kernel_weights:
                     p = dequantize_tree(p)
             else:
                 # int8 activations quantize the weights as fp ones do: the
@@ -304,19 +288,11 @@ class ServingEngine:
                 and p["embed"]._dense is not None}
 
     def decode_tier(self, bits=None) -> str:
-        """The decode-attention tier ``use_kernel=True`` serving at
-        ``bits`` (engine default when None) routes to: ``"kv8"`` (int8 KV
-        cache, no decode-attention kernel), ``"fused"`` (K6/K7) or
-        ``"flash"`` (K4/K5), see ``kernels.ops.decode_kernel_tier``; for
-        the published Zamba2 layout ``"flash"`` (its sites on K4), for the
-        other recurrent, hybrid and audio families ``"none"`` (no
-        kernel)."""
-        if not self.transformer:
-            return "flash" if self.cfg.family == "hybrid" \
-                and zamba.published(self.cfg) else "none"
-        params = self.params_for(self.default_bits if bits is None
-                                 else bits)
-        return kops.decode_kernel_tier(params["layers"][0]["attn"], self.cfg)
+        """The model's ``decode_tier`` at ``bits`` (engine default when
+        None): ``"kv8"`` (int8 KV cache, no decode-attention kernel),
+        ``"fused"`` (K6/K7), ``"flash"`` (K4/K5) or ``"none"``."""
+        return self.model.decode_tier(self.params_for(
+            self.default_bits if bits is None else bits))
 
     # -- public API ----------------------------------------------------------
 
@@ -341,7 +317,7 @@ class ServingEngine:
     def _prepare(self, prompts, n_tokens, quant_bits):
         """Resolve the weights and build the host batch: (params, padded
         prompts with the caps as one extra column (B, s_max + 1) int32,
-        host caps, batch size)."""
+        host caps, batch size, canonical precision)."""
         bits = self.default_bits if quant_bits is None \
             else self._canon_bits(quant_bits)
         params = self.params_for(bits)
@@ -354,31 +330,13 @@ class ServingEngine:
             caps[:nb] = np.minimum(np.asarray(n_tokens, np.int32), self.n_max)
         caps[nb:] = 0
         host = np.concatenate([self.pad_prompts(prompts), caps[:, None]], 1)
-        return params, torch.from_numpy(host), caps, nb
-
-    def _as_batch(self, tokens):
-        """Device prompt tokens as a model input batch; a VLM's batch also
-        holds zero patch embeddings (B, n_img_tokens, d_model), the stub
-        vision frontend's output, and an audio model's zero frame
-        embeddings (B, n_audio_frames, d_model), the stub feature
-        extractor's, as in the JAX package."""
-        batch = {"tokens": tokens}
-        cfg = self.cfg
-        if cfg.family == "vlm":
-            name, n = "patch_embeds", cfg.vlm.n_img_tokens
-        elif cfg.family == "audio":
-            name, n = "audio_embeds", cfg.encdec.n_audio_frames
-        else:
-            return batch
-        batch[name] = torch.zeros((tokens.shape[0], n, cfg.d_model),
-                                  dtype=torch_dtype(cfg), device=self.device)
-        return batch
+        return params, torch.from_numpy(host), caps, nb, bits
 
     def _prefill(self, params, tokens, out=None):
         """Prompt pass; returns (first sampled token (B,), KV cache).
         ``out``: a KV cache to fill in place."""
-        logits, cache = self.model.prefill(params, self._as_batch(tokens),
-                                           self.cache_len, out=out)
+        logits, cache = self.model.prefill(
+            params, self.model.prompt_batch(tokens), self.cache_len, out=out)
         return torch.argmax(logits[..., :self.cfg.vocab], -1), cache
 
     def _decode(self, params, cache, cur, t):
@@ -543,10 +501,10 @@ class ServingEngine:
         are all freed (every cohort drained) cannot take another capture.
         ``captures`` records the span's host ms, warm-up included, and the
         kernel nodes of the captured step (``kernel_nodes``, read after the
-        span; also a count ``nodes`` of the tracer); on the hybrid family
-        also the bytes of SSM and conv state the step reads and writes
-        (``ssm_state_bytes``, twice the state leaves' bytes; also a count of
-        the tracer)."""
+        span; also a count ``nodes`` of the tracer) and, where the model
+        counts them (``state_bytes``), the bytes of recurrent state the step
+        reads and writes (``ssm_state_bytes``; also a count of the
+        tracer)."""
         with trace.span("engine.capture") as timing:
             step = self._model_step(state)
             with trace.span("engine.capture.warm_up"):
@@ -566,13 +524,11 @@ class ServingEngine:
         self._last_loop = loop
         nodes = kernel_nodes(graph)
         trace.count("nodes", nodes)
-        self.captures.append(dict(bits=state.bits, ms=timing.ms,
-                                  paged=isinstance(state, PagedDecodeState),
+        paged = isinstance(state, PagedDecodeState)
+        self.captures.append(dict(bits=state.bits, ms=timing.ms, paged=paged,
                                   nodes=nodes))
-        if self.cfg.family == "hybrid":
-            n = 2 * sum(leaf.nbytes for layer in state.cache
-                        for name, leaf in layer.items()
-                        if name in ("ssm", "conv"))
+        n = None if paged else self.model.state_bytes(state.cache)
+        if n is not None:
             trace.count("ssm_state_bytes", n)
             self.captures[-1]["ssm_state_bytes"] = n
         return loop
@@ -624,9 +580,8 @@ class ServingEngine:
         batch at an explicit precision (``None``: the engine default).
         One host->device and one device->host copy per call; on CUDA the
         decode steps run as the engine's device loop."""
-        params, host, caps, nb = self._prepare(prompts, n_tokens, quant_bits)
-        bits = self.default_bits if quant_bits is None \
-            else self._canon_bits(quant_bits)
+        params, host, caps, nb, bits = self._prepare(prompts, n_tokens,
+                                                     quant_bits)
         trace.count("rows", nb)
         with trace.device("dev.prefill", self.device):
             dev = host.to(self.device)                # the one H2D copy
@@ -651,7 +606,8 @@ class ServingEngine:
                            ) -> GenerationResult:
         """The host-driven decode loop: one device->host copy PER TOKEN.
         ``generate`` must match it bit for bit."""
-        params, host, caps, nb = self._prepare(prompts, n_tokens, quant_bits)
+        params, host, caps, nb, _ = self._prepare(prompts, n_tokens,
+                                                  quant_bits)
         B = self.batch_capacity
         tokens = host[:, :self.s_max].to(self.device)
         cur_d, cache = self._prefill(params, tokens)
@@ -810,9 +766,8 @@ class ServingEngine:
         :class:`PagedDecodeState` is returned.  ``prefixes`` seeds per-row
         forced-replay tokens (one entry per prompt, ``None`` = fresh row)
         for preemption resume."""
-        params, host, caps, _ = self._prepare(prompts, n_tokens, quant_bits)
-        bits = self.default_bits if quant_bits is None \
-            else self._canon_bits(quant_bits)
+        params, host, caps, _, bits = self._prepare(prompts, n_tokens,
+                                                    quant_bits)
         B = self.batch_capacity
         forced, nf = self._forced_buffers(prefixes)
         cols = [host.numpy(), forced, nf]

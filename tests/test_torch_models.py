@@ -3,9 +3,11 @@ prefill and decode-step logits at float32 on reduced configs, for float,
 W8 and W4 trees.  The JAX side runs ``use_kernel=False`` on the
 dequantized tree (its Pallas path does not run on this CPU); the port runs
 its QTensor tree through the kernels' plain versions, with decode
-attention through ``flash_decode`` (use_kernel) and without."""
+attention through ``flash_decode`` (use_kernel) and without.  Also the
+family facts every config's ``api.Model`` states for the serving engine."""
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import pytest
@@ -20,11 +22,15 @@ import numpy as np  # noqa: E402
 from conftest import REDUCTIONS, reduced_cfg  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.quant import ptq as jptq  # noqa: E402
-from repro_torch import bridge  # noqa: E402
+from repro_torch import bridge, config  # noqa: E402
 from repro_torch.config import get_arch  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.launch.serve import reduced  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.models.common import torch_dtype  # noqa: E402
 from repro_torch.quant import ptq as tptq  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 ARCHS = ["bloom-3b", "opt-13b", "olmo-1b"]   # layernorm+gelu, relu, nonparam_ln+silu
 B, S, W = 2, 12, 20
@@ -127,3 +133,85 @@ def test_tied_unembed_reads_the_kept_dequantized_table():
     assert q["embed"]._dense is not None
     b = x @ tptq.dequantize(q["embed"]).T
     assert torch.equal(a, b)
+
+
+# -- the family facts the serving engine asks of models.api.Model ---------
+
+def _reduced(arch):
+    """``arch`` at the suite's reduced size: ``reduced_cfg``'s cut from the
+    port's registry; zamba2-7b-instruct at the published layout
+    ``test_torch_zamba2_published`` cuts it to (three sites over nine
+    layers)."""
+    if arch == "zamba2-7b-instruct":
+        from test_torch_zamba2_published import _cfg
+        return _cfg()
+    cfg, want = reduced(get_arch(arch)), reduced_cfg(arch)
+    for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "d_head", "vocab", "sliding_window"):
+        assert getattr(cfg, f) == getattr(want, f), (arch, f)
+    for sub in ("moe", "encdec", "vlm"):
+        a, b = getattr(cfg, sub), getattr(want, sub)
+        assert (a is None) == (b is None), (arch, sub)
+        if a is not None:
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), (arch, sub)
+    return cfg
+
+
+def _engine_facts(cfg, eng, bits):
+    """The facts as the serving engine decided them from the family until
+    the family modules stated them: (kernel_weights, decode tier at
+    ``bits``, the stub embedding's name and length or None, whether the
+    SSM and conv state is counted)."""
+    transformer = cfg.family in ("dense", "moe", "vlm")
+    if transformer:
+        tier = kops.decode_kernel_tier(
+            eng.params_for(bits)["layers"][0]["attn"], cfg)
+    else:
+        tier = "flash" if cfg.family == "hybrid" and cfg.hybrid.sites \
+            else "none"
+    stub = {"vlm": ("patch_embeds", cfg.vlm and cfg.vlm.n_img_tokens),
+            "audio": ("audio_embeds",
+                      cfg.encdec and cfg.encdec.n_audio_frames)
+            }.get(cfg.family)
+    return transformer, tier, stub, cfg.family == "hybrid"
+
+
+@pytest.mark.parametrize("arch", config._ARCHS + config._PORT_ARCHS)
+def test_family_facts_match_the_engine_table(arch):
+    """Each config's ``Model`` states what the engine once decided from
+    ``cfg.family``: kernel weights (QTensor leaves served, ``use_kernel``
+    passed) exactly for the dense, MoE and VLM families; the engine's
+    ``decode_tier`` at 0, 4, 8 and W8A8 ("flash" for the published
+    Zamba2 layout); the prompt batch's stub embeddings; the SSM and conv
+    state bytes on both Zamba2 layouts and None elsewhere."""
+    cfg = _reduced(arch)
+    model = api.build_model(cfg)
+    eng = ServingEngine(cfg, batch_capacity=2, s_max=8, n_max=4,
+                        device="cpu")
+    for bits in (0, 4, 8, (8, 8)):
+        kernel, tier, stub, counted = _engine_facts(cfg, eng, bits)
+        assert model.kernel_weights is eng.model.kernel_weights is kernel
+        assert eng.decode_tier(bits) == model.decode_tier(
+            eng.params_for(bits)) == tier, bits
+        quantized = any(isinstance(leaf, tptq.QTensor)
+                        for leaf in tptq.tree_leaves(eng.params_for(bits)))
+        assert quantized is (kernel and bits != 0), bits
+    assert ("use_kernel" in eng._decode_kw) is kernel
+    if arch == "zamba2-7b-instruct":
+        assert tier == "flash"
+
+    tokens = torch.ones((2, 8), dtype=torch.int32)
+    batch = model.prompt_batch(tokens)
+    assert batch["tokens"] is tokens
+    assert sorted(batch) == sorted(["tokens"] + ([stub[0]] if stub else []))
+    if stub:
+        emb = batch[stub[0]]
+        assert emb.shape == (2, stub[1], cfg.d_model)
+        assert emb.dtype == torch_dtype(cfg) and not emb.any()
+
+    cache = model.init_cache(2, 16, "cpu")
+    want = 2 * sum(leaf.nbytes for layer in cache
+                   for name, leaf in layer.items()
+                   if name in ("ssm", "conv")) if counted else None
+    assert model.state_bytes(cache) == want
+    assert want is None or want > 0
